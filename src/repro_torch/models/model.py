@@ -1,0 +1,97 @@
+"""Top-level model API of the attention families, after
+``repro/models/model.py``.
+
+  init(cfg, seed=, device=)                -> params
+  forward(params, cfg, batch, ...)         -> hidden (B,S,d)
+  logits(params, cfg, hidden)              -> (B, S, V)
+  prefill(params, cfg, batch, ...)         -> (hidden_last (B,d), caches, prompt_len)
+  decode_step(params, cfg, caches, t, tok) -> (logits (B,V), caches)
+
+``batch`` keys: "tokens" (B,S) integer tensor always; "patches" (B,P,d) for
+vlm (the projected patch stub), prepended to the token embeddings.  The
+decode path operates past the prefix.  Parameters are a dictionary:
+``embed`` (V, d), ``stack`` (a list of per-layer dictionaries in layer
+order) and ``final_norm`` (d,).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import device as D
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import stack as ST
+
+
+def init(cfg: ModelConfig, *, seed: int = 0, device: D.DeviceLike = None):
+    """Random parameters with the reference's distributions, drawn from a
+    generator seeded with ``seed`` on ``device`` (the card by default).  The
+    numbers differ from ``repro.models.model.init``'s: tests that compare
+    the two packages convert the reference's parameters instead."""
+    gen = torch.Generator(device=D.resolve(device)).manual_seed(seed)
+    emb = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                      dtype=torch.float32, device=gen.device)
+    return {
+        "embed": (emb * (1.0 / cfg.d_model ** 0.5)).to(cfg.dtype),
+        "stack": ST.init_stack(gen, cfg),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=gen.device),
+    }
+
+
+def _embed_with_prefix(params, cfg: ModelConfig, batch):
+    x = params["embed"][batch["tokens"]]
+    if cfg.family == "vlm" and "patches" in batch:
+        prefix = batch["patches"].to(x.dtype)
+        return torch.cat([prefix, x], dim=1), prefix.shape[1]
+    return x, 0
+
+
+def _positions(b: int, s: int, device):
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def forward(params, cfg: ModelConfig, batch, *, impl="kernel"):
+    """Full-sequence forward; returns the final-normed hidden states past
+    the prefix.  (The reference also returns the MoE balancing loss, which
+    comes with the MoE slice.)"""
+    x, n_prefix = _embed_with_prefix(params, cfg, batch)
+    b, s = x.shape[:2]
+    x, _ = ST.apply_stack(params["stack"], cfg, x, _positions(b, s, x.device),
+                          impl=impl, mode="train")
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x[:, n_prefix:]
+
+
+def logits(params, cfg: ModelConfig, hidden):
+    return hidden @ params["embed"].T
+
+
+def prefill(params, cfg: ModelConfig, batch, *, impl="kernel",
+            capacity: Optional[int] = None):
+    """Process the prompt; returns (hidden_last (B, d), caches, prompt_len)."""
+    x, _ = _embed_with_prefix(params, cfg, batch)
+    b, s = x.shape[:2]
+    x, caches = ST.apply_stack(params["stack"], cfg, x, _positions(b, s, x.device),
+                               impl=impl, mode="prefill",
+                               capacity=capacity if capacity else s)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x[:, -1], caches, s
+
+
+def decode_step(params, cfg: ModelConfig, caches, cache_len: int, tokens, *,
+                impl="kernel"):
+    """tokens: (B, 1) integer tensor; cache_len: the current context length.
+
+    Returns (logits (B, V), caches).  The caches are updated in place."""
+    x = params["embed"][tokens]
+    x, caches = ST.apply_stack(params["stack"], cfg, x, None, impl=impl,
+                               caches=caches, cache_len=cache_len, mode="decode")
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["embed"].T)[:, 0], caches
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               device: D.DeviceLike = None):
+    return ST.init_cache(cfg, batch, capacity, D.resolve(device))

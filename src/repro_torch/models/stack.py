@@ -1,0 +1,212 @@
+"""The layer stack of the attention families, after ``repro/models/stack.py``.
+
+The reference scans over repeated pattern blocks with stacked parameters;
+the port keeps a plain list of per-layer parameter and cache dictionaries in
+layer order and loops over it in Python (``plan`` is kept: it names the
+layer pattern and tells ``convert`` how to unstack reference parameters).
+
+This slice runs dense and VLM decoders: embed -> L x [rms_norm -> RoPE GQA
+attention -> rms_norm -> MLP].  Mamba2, MoE and cross-attention layers
+raise ``NotImplementedError`` naming the slice that brings them.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+
+class LayerSpec(NamedTuple):
+    is_attn: bool
+    is_global: bool
+    is_moe: bool
+    has_cross: bool = False
+
+
+class StackPlan(NamedTuple):
+    period: int
+    n_rep: int
+    pattern: tuple            # LayerSpec per pattern position
+    rem: tuple                # LayerSpec per remainder layer
+
+
+def _spec(cfg: ModelConfig, i: int, cross: bool) -> LayerSpec:
+    return LayerSpec(cfg.is_attn_layer(i), cfg.is_global_layer(i),
+                     cfg.is_moe_layer(i), cross)
+
+
+def plan(cfg: ModelConfig, *, cross: bool = False,
+         n_layers: Optional[int] = None) -> StackPlan:
+    n = n_layers if n_layers is not None else cfg.n_layers
+    period = 1
+    if cfg.sliding_window is not None and cfg.global_every > 0:
+        period = math.lcm(period, cfg.global_every)
+    if cfg.family == "hybrid" and cfg.attn_every > 0:
+        period = math.lcm(period, cfg.attn_every)
+    if cfg.moe is not None:
+        period = math.lcm(period, cfg.moe.every)
+    period = min(period, n)
+    n_rep = n // period
+    pattern = tuple(_spec(cfg, i, cross) for i in range(period))
+    rem = tuple(_spec(cfg, n_rep * period + j, cross)
+                for j in range(n - n_rep * period))
+    return StackPlan(period, n_rep, pattern, rem)
+
+
+def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    """One LayerSpec per decoder layer, in layer order.  Raises for the
+    layer kinds that later slices of the port bring."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.arch_id}: encoder-decoder models (cross-attention) come "
+            "with the enc-dec slice (ROADMAP queue 1, item 10)")
+    pl = plan(cfg)
+    specs = [pl.pattern[j] for _ in range(pl.n_rep) for j in range(pl.period)]
+    specs += list(pl.rem)
+    for spec in specs:
+        if not spec.is_attn:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: Mamba2 layers come with the models/ssm.py "
+                "slice (ROADMAP queue 1, item 8)")
+        if spec.is_moe:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: MoE layers come with the models/moe.py "
+                "slice (ROADMAP queue 1, item 9)")
+    return specs
+
+
+def _window(cfg: ModelConfig, spec: LayerSpec) -> Optional[int]:
+    if cfg.sliding_window is not None and not spec.is_global:
+        return cfg.sliding_window
+    return None
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
+    d, dt = cfg.d_model, cfg.dtype
+    p = {"ln1": torch.zeros((d,), dtype=dt, device=gen.device),
+         "attn": L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim_, dt)}
+    if cfg.d_ff > 0:
+        p["ln2"] = torch.zeros((d,), dtype=dt, device=gen.device)
+        p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_gated, dt)
+    return p
+
+
+def init_stack(gen: torch.Generator, cfg: ModelConfig):
+    return [init_layer(gen, cfg, spec) for spec in layer_specs(cfg)]
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+def _layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, capacity: int,
+                 device):
+    cap = capacity
+    if cfg.sliding_window is not None and not spec.is_global:
+        cap = min(cfg.sliding_window, capacity)
+    shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, device):
+    return [_layer_cache(cfg, spec, batch, capacity, device)
+            for spec in layer_specs(cfg)]
+
+
+# ---------------------------------------------------------------------------
+# single layer application
+# ---------------------------------------------------------------------------
+def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
+                impl="kernel", cache=None, cache_len=None, mode="train",
+                capacity: Optional[int] = None):
+    """Returns (x, new_cache)."""
+    new_cache = {}
+    h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
+    window = _window(cfg, spec)
+    if mode == "decode":
+        a, new_cache = _attn_decode(params["attn"], cfg, h, cache, cache_len, impl)
+    else:
+        a, (k, v) = L.attn_block(params["attn"], h, positions, cfg.rope_theta,
+                                 window=window, causal=True, impl=impl)
+        if mode == "prefill":
+            new_cache = _build_kv_cache(k, v, window, capacity)
+    x = x + a
+    if "mlp" in params:
+        h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
+        x = x + L.mlp(params["mlp"], h)
+    return x, new_cache
+
+
+def _build_kv_cache(k, v, window, capacity):
+    """Arrange prefill K/V into the decode cache layout."""
+    s = k.shape[1]
+    if window is not None:
+        cap = min(window, capacity if capacity else window)
+        if s >= cap:
+            shift = s % cap
+            return {"k": torch.roll(k[:, -cap:], shift, dims=1),
+                    "v": torch.roll(v[:, -cap:], shift, dims=1)}
+        pad = (0, 0, 0, 0, 0, cap - s)
+        return {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    cap = capacity if capacity else s
+    if cap < s:
+        raise ValueError(
+            f"a prompt of {s} positions does not fit a KV cache of {cap} "
+            "slots; raise max_ctx or shorten the prompt")
+    if cap == s:
+        return {"k": k, "v": v}
+    pad = (0, 0, 0, 0, 0, cap - s)
+    return {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+
+
+def _attn_decode(params, cfg, h, cache, cache_len: int, impl):
+    """h: (B, 1, d). Insert the new K/V and attend over the cache.
+
+    The reference inserts with a masked select so that a sharded cache stays
+    local; on one card the port writes the new slot in place, so the
+    returned cache is the one passed in."""
+    b = h.shape[0]
+    pos = torch.full((b, 1), cache_len, dtype=torch.int32, device=h.device)
+    q = L.apply_rope(L.project_heads(h, params["wq"]), pos, cfg.rope_theta)
+    k1 = L.apply_rope(L.project_heads(h, params["wk"]), pos, cfg.rope_theta)
+    v1 = L.project_heads(h, params["wv"])
+    cap = cache["k"].shape[1]
+    idx = cache_len % cap
+    cache["k"][:, idx] = k1[:, 0]
+    cache["v"][:, idx] = v1[:, 0]
+    if impl == "kernel":
+        lengths = torch.full((b,), min(cache_len + 1, cap), dtype=torch.int32,
+                             device=h.device)
+        o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)[:, None]
+    elif impl == "naive":
+        valid = torch.full((b,), cache_len + 1, dtype=torch.int32, device=h.device)
+        o = L.attention_decode(q, cache["k"], cache["v"], valid)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return L.merge_heads(o, params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# full stack application
+# ---------------------------------------------------------------------------
+def apply_stack(params, cfg: ModelConfig, x, positions, *, impl="kernel",
+                caches=None, cache_len=None, mode="train", capacity=None):
+    """Returns (x, new_caches); new_caches is None in train mode.  Decode
+    takes its position from ``cache_len`` and ignores ``positions``."""
+    new_caches = []
+    for j, spec in enumerate(layer_specs(cfg)):
+        x, nc = layer_apply(params[j], cfg, spec, x, positions, impl=impl,
+                            cache=caches[j] if caches is not None else None,
+                            cache_len=cache_len, mode=mode, capacity=capacity)
+        new_caches.append(nc)
+    return x, (new_caches if mode in ("prefill", "decode") else None)

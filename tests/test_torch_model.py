@@ -1,0 +1,222 @@
+"""repro_torch.models.model against repro.models.model on the reference's own
+parameters (``repro.models.model.init``, converted through numpy).
+
+For each reduced architecture of the vlm-classify path and the two
+sliding-window families, the same tokens (and patches) go through
+``forward``, ``prefill`` and several ``decode_step``s of both packages; the
+hidden states, logits and KV caches must agree.  The sliding-window cases
+decode across the window boundary and prefill past it, so the ring buffer
+wraps both ways (the pattern of tests/test_long_context.py).  The reference
+runs its naive attention; the port runs ``impl="kernel"``, which on the CPU
+is each kernel's plain version.
+
+Tolerances are the reference's: 2e-4 for f32, 2e-2 for bf16.  In bf16 the
+two frameworks round their elementwise ops differently (XLA's CPU logistic,
+``jax.nn.gelu``'s constants rounded to bf16, bf16 matmul rounding), which
+puts whole-model logits a few bf16 ulps apart, beyond 2e-2 in a few
+elements; the bf16 case therefore compares greedy tokens where the top-2
+margin exceeds the tolerance, and the numbers are held at f32.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as JC
+from repro.models import model as JM
+from repro.models import stack as JS
+from repro_torch import configs as TC
+from repro_torch.models import convert
+from repro_torch.models import model as TM
+
+F32 = dict(atol=2e-4, rtol=2e-4)
+BF16 = dict(atol=2e-2, rtol=2e-2)
+
+# name: (arch, n_layers, d_model, dtype, prompt, decode steps, patches)
+CASES = {
+    "yi": ("yi-34b", 2, 128, "float32", 10, 3, False),
+    "yi_bf16": ("yi-34b", 2, 128, "bfloat16", 10, 2, False),
+    "phi3": ("phi-3-vision-4.2b", 2, 384, "float32", 9, 3, False),
+    "phi3_patches": ("phi-3-vision-4.2b", 2, 128, "float32", 7, 3, True),
+    "starcoder2_ring": ("starcoder2-3b", 2, 128, "float32", 60, 8, False),
+    "starcoder2_roll": ("starcoder2-3b", 2, 128, "float32", 70, 3, False),
+    "gemma3_ring": ("gemma3-27b", 2, 128, "float32", 60, 8, False),
+    "gemma3_roll": ("gemma3-27b", 2, 128, "float32", 70, 3, False),
+}
+B = 2
+
+
+def _configs(arch, n_layers, d_model, dtype):
+    jcfg = JC.arch_module(arch).reduced(n_layers, d_model)
+    tcfg = TC.arch_module(arch).reduced(n_layers, d_model)
+    if dtype == "bfloat16":
+        jcfg = dataclasses.replace(jcfg, dtype=jnp.bfloat16)
+        tcfg = dataclasses.replace(tcfg, dtype=torch.bfloat16)
+    return jcfg, tcfg
+
+
+def _jax_layer(tree, jcfg, i):
+    """Layer i of a stacked reference pytree (params or caches)."""
+    pl = JS.plan(jcfg)
+    if i < pl.n_rep * pl.period:
+        return jax.tree.map(lambda a: a[i // pl.period], tree["blocks"][i % pl.period])
+    return tree["rem"][i - pl.n_rep * pl.period]
+
+
+def _np(x):
+    """A float32 numpy copy: the port updates its caches in place."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy().copy()
+    return np.asarray(x, np.float32)
+
+
+_RUNS = {}
+
+
+def _run(name):
+    """Both packages on one case; computed once per module and case."""
+    if name in _RUNS:
+        return _RUNS[name]
+    arch, n_layers, d_model, dtype, prompt, steps, with_patches = CASES[name]
+    jcfg, tcfg = _configs(arch, n_layers, d_model, dtype)
+    rng = np.random.default_rng(0)
+    total = prompt + steps
+    toks = rng.integers(0, jcfg.vocab, (B, total)).astype(np.int32)
+    patches = (rng.standard_normal((B, jcfg.n_patches, jcfg.d_model)).astype(np.float32)
+               if with_patches else None)
+    n_prefix = jcfg.n_patches if with_patches else 0
+    cap = n_prefix + total
+
+    jparams = jax.jit(JM.init, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                                      device="cpu")
+
+    def jbatch(t):
+        b = {"tokens": jnp.asarray(t)}
+        if with_patches:
+            b["patches"] = jnp.asarray(patches)
+        return b
+
+    def tbatch(t):
+        b = {"tokens": torch.from_numpy(t.copy())}
+        if with_patches:
+            b["patches"] = torch.from_numpy(patches)
+        return b
+
+    out = {"jcfg": jcfg, "tcfg": tcfg, "dtype": dtype}
+
+    @jax.jit
+    def jfwd(p, b):
+        h, _ = JM.forward(p, jcfg, b, impl="naive")
+        return h, JM.logits(p, jcfg, h)
+
+    h, lg = jfwd(jparams, jbatch(toks))
+    out["forward"] = (_np(h), _np(lg))
+    with torch.inference_mode():
+        th = TM.forward(tparams, tcfg, tbatch(toks))
+        out["forward_port"] = (_np(th), _np(TM.logits(tparams, tcfg, th)))
+
+    jpre = jax.jit(lambda p, b: JM.prefill(p, jcfg, b, impl="naive", capacity=cap)[:2])
+    jdec = jax.jit(lambda p, c, n, t: JM.decode_step(p, jcfg, c, n, t))
+    hl, jcaches = jpre(jparams, jbatch(toks[:, :prompt]))
+    out["prefill"] = _np(hl)
+    out["prefill_caches"] = [jax.tree.map(_np, _jax_layer(jcaches, jcfg, i))
+                             for i in range(jcfg.n_layers)]
+    with torch.inference_mode():
+        thl, tcaches, s = TM.prefill(tparams, tcfg, tbatch(toks[:, :prompt]),
+                                     capacity=cap)
+        out["prefill_port"] = _np(thl)
+        out["prefill_caches_port"] = [{k: _np(v) for k, v in c.items()} for c in tcaches]
+        assert s == n_prefix + prompt
+        jl, tl = [], []
+        for t in range(prompt, total):
+            clen = n_prefix + t
+            lg, jcaches = jdec(jparams, jcaches, jnp.int32(clen), jnp.asarray(toks[:, t:t + 1]))
+            jl.append(_np(lg))
+            lg, tcaches = TM.decode_step(tparams, tcfg, tcaches, clen,
+                                         torch.from_numpy(toks[:, t:t + 1].copy()))
+            tl.append(_np(lg))
+    out["decode"], out["decode_port"] = np.stack(jl), np.stack(tl)
+    out["decode_caches"] = [jax.tree.map(_np, _jax_layer(jcaches, jcfg, i))
+                            for i in range(jcfg.n_layers)]
+    out["decode_caches_port"] = [{k: _np(v) for k, v in c.items()} for c in tcaches]
+    _RUNS[name] = out
+    return out
+
+
+def _tol(run):
+    return BF16 if run["dtype"] == "bfloat16" else F32
+
+
+F32_CASES = [name for name, case in CASES.items() if case[3] == "float32"]
+
+
+@pytest.fixture(scope="module")
+def run(request):
+    return _run(request.param)
+
+
+@pytest.mark.parametrize("run", F32_CASES, indirect=True)
+def test_forward_hidden_and_logits(run):
+    for got, want in zip(run["forward_port"], run["forward"]):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, **_tol(run))
+
+
+@pytest.mark.parametrize("run", F32_CASES, indirect=True)
+def test_prefill_hidden_and_caches(run):
+    np.testing.assert_allclose(run["prefill_port"], run["prefill"], **_tol(run))
+    for got, want in zip(run["prefill_caches_port"], run["prefill_caches"]):
+        assert got.keys() == want.keys()
+        for key in want:
+            assert got[key].shape == want[key].shape, key
+            np.testing.assert_allclose(got[key], want[key], **_tol(run))
+
+
+@pytest.mark.parametrize("run", F32_CASES, indirect=True)
+def test_decode_logits_and_caches(run):
+    np.testing.assert_allclose(run["decode_port"], run["decode"], **_tol(run))
+    for got, want in zip(run["decode_caches_port"], run["decode_caches"]):
+        for key in want:
+            np.testing.assert_allclose(got[key], want[key], **_tol(run))
+
+
+def _top2_margin(lg):
+    top = np.sort(lg, axis=-1)[..., -2:]
+    return top[..., 1] - top[..., 0]
+
+
+@pytest.mark.parametrize("run", ["yi_bf16"], indirect=True)
+def test_bf16_greedy_tokens_agree_where_the_margin_allows(run):
+    want = np.concatenate([run["forward"][1], run["decode"].transpose(1, 0, 2)], axis=1)
+    got = np.concatenate([run["forward_port"][1], run["decode_port"].transpose(1, 0, 2)],
+                         axis=1)
+    clear = _top2_margin(want) > BF16["atol"]
+    assert clear.mean() > 0.5
+    np.testing.assert_array_equal(got.argmax(-1)[clear], want.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("run", ["gemma3_roll"], indirect=True)
+def test_window_layers_keep_a_ring_of_window_slots(run):
+    """gemma3 with global_every=2: layer 0 is local (ring of 64 slots),
+    layer 1 global (the full capacity)."""
+    caps = [c["k"].shape[1] for c in run["prefill_caches_port"]]
+    assert caps == [64, 73]
+
+
+def test_prompt_longer_than_cache_raises():
+    _, tcfg = _configs("yi-34b", 1, 128, "float32")
+    params = TM.init(tcfg, device="cpu")
+    with pytest.raises(ValueError, match="does not fit"):
+        TM.prefill(params, tcfg, {"tokens": torch.zeros((1, 12), dtype=torch.int64)},
+                   capacity=8)
+
+
+def test_later_slices_raise_not_implemented():
+    for arch, what in (("mamba2-2.7b", "Mamba2"), ("qwen2-moe-a2.7b", "MoE"),
+                       ("whisper-medium", "enc-dec")):
+        with pytest.raises(NotImplementedError, match=what):
+            TM.init(TC.get_config(arch, reduced=True), device="cpu")
