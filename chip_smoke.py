@@ -6,18 +6,25 @@
 Phases, each of which fails the script if it fails:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
-2. build both CUDA kernels from src/repro_torch/kernels/csrc and print the
-   ptxas register / shared-memory report;
+2. build the three CUDA kernels from src/repro_torch/kernels/csrc, all at
+   once, and print the ptxas register / spill report and each kernel's
+   dynamic shared memory;
 3. hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (bf16 within 2e-2, f32 within 2e-4), then time the
-   kernel, the plain version and F.scaled_dot_product_attention (a yardstick
-   the port never calls) with CUDA events, beside the card's bound;
+   serving paths' shapes (attention: bf16 within 2e-2, f32 within 2e-4; the
+   SSD scan: bf16 within 2e-2, f32 within atol 5e-4 / rtol 5e-3), then time
+   the kernel, the plain version and, for attention,
+   F.scaled_dot_product_attention (a yardstick the port never calls) with
+   CUDA events, beside the card's bound;
 4. serve the vlm-classify pipeline at full width -- phi-3-vision-4.2b at its
    published config, then yi-34b at full width with its depth cut to 12 of
    60 layers -- with random weights from a seed, counting kernel launches,
    and hold one stage's kernel path against its naive attention path;
 5. profile the reduced vlm-classify variant families exactly as
-   ``build_pipeline`` does, and the full-width phi-3 stage, into StageModels.
+   ``build_pipeline`` does, and the full-width phi-3 stage, into StageModels;
+6. serve mamba2-2.7b at its published config (64 layers, d 2560) as a
+   one-stage pipeline, counting SSD scan launches, trace a batch, hold its
+   kernel path against its naive SSD path at S 1024 and S 1000, and profile
+   the reduced mamba2 family and the full-width stage.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -47,17 +55,24 @@ from repro_torch.core import profiler as PF  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as K2  # noqa: E402
 from repro_torch.kernels import flash_attention as K1  # noqa: E402
+from repro_torch.kernels import ssd_scan as K3  # noqa: E402
 from repro_torch.launch.serve import build_pipeline  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving.engine import PipelineEngine, StageServer  # noqa: E402
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}    # tests/test_kernels.py:13-15
+# the SSD scan sums its decays in another order than the plain version's
+# cumsum: the reference's own SSD tolerance in f32 (tests/test_kernels.py:90-93)
+SSD_TOL = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
+           torch.float32: dict(atol=5e-4, rtol=5e-3)}
+MAMBA_TOL = dict(atol=1e-3, rtol=1e-2)    # tests/test_kernels.py:143-146
 # H100 SXM peaks (NVIDIA data sheet, dense, at its 700 W power limit): bf16
 # tensor cores, f32 CUDA cores (the kernels use no TF32), HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 BATCH, PROMPT, GEN = 4, 256, 8
 YI_LAYERS = 12
+MAMBA_PROMPT = 1024
 DEV = "cuda"
 
 
@@ -106,6 +121,23 @@ def decode_bound(h, kv, hd, L, lengths, dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
+def ssd_bound(b, s, h, p, g, n, chunk, dtype):
+    """Bytes: x, dt, a_neg, B and C read once, y and the f32 final state
+    written once.  Operations: C.B^T once per (batch, chunk, group) and the
+    per-head products, each over the lower triangle of a chunk's valid rows
+    only."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = 2 * b * s * h * p * item + 4 * b * s * h + 4 * h + 2 * b * s * g * n * item \
+        + 4 * b * h * p * n
+    flops = 0.0
+    for c0 in range(0, s, chunk):
+        rows = min(chunk, s - c0)
+        pairs = rows * (rows + 1) / 2
+        flops += b * (2.0 * pairs * n * g + h * (2.0 * pairs * p + 4.0 * rows * p * n))
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
 def sdpa_prefill(q, k, v):
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
@@ -141,14 +173,15 @@ def phase_build():
     reports = _build.build()
     log(f"build: {', '.join(reports)} with {_build.nvcc()} in "
         f"{time.perf_counter() - t0:.1f} s")
-    # one entry per instantiation: "<dtype>/hd<HD>: <registers> registers"
-    entry = re.compile(r"_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+    # one entry per instantiation: "<dtype>[/hd<HD>]: <registers> registers"
+    entry = re.compile(r"_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?")
     for name, text in reports.items():
         found, current = [], None
         for ln in text.splitlines():
             m = entry.search(ln)
             if m:
-                current = f"{'f32' if m.group(1) == 'f' else 'bf16'}/hd{m.group(2)}"
+                current = (f"{'f32' if m.group(1) == 'f' else 'bf16'}"
+                           + (f"/hd{m.group(2)}" if m.group(2) else ""))
             used = re.search(r"Used (\d+) registers", ln)
             if used and current:
                 found.append(f"{current}: {used.group(1)} regs")
@@ -160,14 +193,74 @@ def phase_build():
     k1.argtypes, k1.restype = [ctypes.c_int], ctypes.c_int
     k2 = _build.load("decode_attention").repro_decode_attention_smem_bytes
     k2.argtypes, k2.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    k3 = _build.load("ssd_scan").repro_ssd_scan_smem_bytes
+    k3.argtypes, k3.restype = [], ctypes.c_int
     log("dynamic shared memory per block: flash_attention "
         + ", ".join(f"hd{hd} {k1(hd)} B" for hd in (32, 64, 96, 128))
         + f"; decode_attention phi-3 (group 1, hd96) {k2(1, 96)} B, "
-        f"yi-34b (group 7, hd128) {k2(7, 128)} B")
+        f"yi-34b (group 7, hd128) {k2(7, 128)} B; ssd_scan (every width, mamba2-2.7b's "
+        f"P 64 x N 128 state included) {k3()} B")
 
 
 def _randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=DEV, dtype=torch.float32).to(dtype)
+
+
+def _ssd_inputs(gen, b, s, h, p, g, n, dtype):
+    """x, B, C standard normal; dt = softplus(normal); a_neg = -linspace(1,
+    16, H), init_mamba's decay rates, so a 256-row chunk spans |cum| of a
+    few thousand."""
+    x = _randn(gen, (b, s, h, p), dtype)
+    dt = F.softplus(_randn(gen, (b, s, h), torch.float32))
+    a_neg = -torch.linspace(1.0, 16.0, h, device=DEV)
+    return x, dt, a_neg, _randn(gen, (b, s, g, n), dtype), _randn(gen, (b, s, g, n), dtype)
+
+
+def _ssd_check(label, got, want, dtype, rows):
+    """One SSD parity case: y in its dtype's tolerance, the state in f32's."""
+    errs = []
+    for g, w, dt in ((got[0], want[0], dtype), (got[1], want[1], torch.float32)):
+        errs.append((g.float() - w.float()).abs().max().item())
+        ok = torch.allclose(g.float(), w.float(), **SSD_TOL[dt])
+        assert ok and torch.isfinite(g).all(), (label, errs)
+    tol = SSD_TOL[dtype]
+    log(f"K3 {label} {str(dtype)[6:]}: max abs err y {errs[0]:.3e}, state {errs[1]:.3e} "
+        f"(atol {tol['atol']}, rtol {tol['rtol']}) ok")
+    rows.append({"case": f"{label} {str(dtype)[6:]}", "max_abs_err": max(errs),
+                 "tol": tol})
+
+
+def phase_parity_ssd(gen):
+    """K3 against its plain version at mamba2-2.7b's widths: S 4 (what
+    nlp-chain hands its third stage), 1000 (a ragged tail) and 1024; the
+    reduced family's; G > 1; and a state carried across two halves."""
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = []
+    # (label, B, S, H, P, G, N, chunk, dtype)
+    cases = [(f"mamba2-2.7b S={s}", BATCH, s, 80, 64, 1, 128, 256, dt)
+             for s in (4, 1000, 1024) for dt in (bf, f32)]
+    cases += [("reduced P=32 N=16 chunk 32 S=100", BATCH, 100, 16, 32, 1, 16, 32, dt)
+              for dt in (f32, bf)]
+    cases += [("G=2 reduced S=300", 2, 300, 16, 32, 2, 16, 32, f32),
+              ("G=2 full width S=600", 2, 600, 80, 64, 2, 128, 256, bf)]
+    for label, b, s, h, p, g, n, chunk, dt in cases:
+        args = _ssd_inputs(gen, b, s, h, p, g, n, dt)
+        got = K3.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        _ssd_check(label, got, K3.ssd_scan_plain(*args, chunk), dt, rows)
+    x, dt, a_neg, bm, cm = _ssd_inputs(gen, BATCH, 1000, 80, 64, 1, 128, f32)
+    whole = K3.ssd_scan(x, dt, a_neg, bm, cm, chunk=256)
+    m = x.shape[1] // 2     # 500: neither half is a whole number of chunks
+    halves = [[t[:, sl].contiguous() for t in (x, dt)] + [a_neg]
+              + [t[:, sl].contiguous() for t in (bm, cm)] for sl in (slice(0, m), slice(m, None))]
+    y1, f1 = K3.ssd_scan(*halves[0], chunk=256)
+    y2, f2 = K3.ssd_scan(*halves[1], chunk=256, init_state=f1)
+    torch.cuda.synchronize()
+    _ssd_check("mamba2-2.7b S=1000 in two halves vs one pass", (torch.cat([y1, y2], 1), f2),
+               whole, f32, rows)
+    _ssd_check("mamba2-2.7b second half from a carried state vs plain", (y2, f2),
+               K3.ssd_scan_plain(*halves[1], 256, init_state=f1), f32, rows)
+    return rows
 
 
 def phase_parity():
@@ -218,6 +311,7 @@ def phase_parity():
         assert ok, label
         rows["decode_attention"].append({"case": f"{label} {str(dt)[6:]}",
                                          "max_abs_err": err, "tol": TOL[dt]})
+    rows["ssd_scan"] = phase_parity_ssd(gen)
     return rows
 
 
@@ -266,6 +360,23 @@ def phase_timing():
             f"bound {bound:.4f} ms ({by})")
         out[("decode_attention", label)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                                bound_ms=bound, bound_by=by, max_abs_err=err)
+    # SSD scan: the mamba2-2.7b prefill of the serve phase, and the 4-token
+    # prompt nlp-chain hands its third stage
+    log("time K3: no single PyTorch call computes the SSD scan, so it has no "
+        "library time (library_ms null)")
+    for label, s in (("mamba2-2.7b prefill", MAMBA_PROMPT), ("mamba2-2.7b S=4", 4)):
+        args = _ssd_inputs(gen, BATCH, s, 80, 64, 1, 128, bf)
+        sets = copies(args)
+        got, want = K3.ssd_scan(*args, chunk=256), K3.ssd_scan_plain(*args, 256)
+        err = max((got[i].float() - want[i].float()).abs().max().item() for i in (0, 1))
+        assert torch.allclose(got[0].float(), want[0].float(), **SSD_TOL[bf]), (label, err)
+        ms = cuda_ms(lambda *a: K3.ssd_scan(*a, chunk=256), sets)
+        plain = cuda_ms(lambda *a: K3.ssd_scan_plain(*a, 256), sets)
+        bound, by = ssd_bound(BATCH, s, 80, 64, 1, 128, 256, bf)
+        log(f"time K3 {label} B={BATCH} S={s} H=80 P=64 G=1 N=128 chunk 256 bf16: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by})")
+        out[("ssd_scan", label)] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                       bound_ms=bound, bound_by=by, max_abs_err=err)
     return out
 
 
@@ -300,8 +411,7 @@ def phase_serve():
     prompts = [rng.integers(0, 32_064, (BATCH, PROMPT)).astype(np.int32) for _ in range(3)]
     engine.serve(prompts[0])                      # first use: cuBLAS handles, kernel loads
     torch.cuda.reset_peak_memory_stats()
-    K1.flash_attention.launches = 0
-    K2.decode_attention.launches = 0
+    reset_launches()
     lats = []
     for p in prompts[1:]:
         out, lat = engine.serve(p)
@@ -310,8 +420,7 @@ def phase_serve():
         assert ((out >= 0) & (out < servers[1].config.vocab)).all()
         log(f"served batch B={BATCH} S={PROMPT}: tokens {out.tolist()}, stage latencies "
             f"{[f'{x * 1e3:.3f} ms' for x in lat]}, PAS {engine.pas:.4f}")
-    launches = {"flash_attention": K1.flash_attention.launches,
-                "decode_attention": K2.decode_attention.launches}
+    launches = read_launches()
     n_batches = len(prompts) - 1
     n_attn = sum(s.config.n_layers for s in servers)
     log(f"launches over {n_batches} batches: {launches} (expected flash "
@@ -322,16 +431,29 @@ def phase_serve():
     return servers, launches, lats
 
 
-def _kernel_and_naive_logits(cfg, params):
-    """Prefill + 2 decode steps with the kernels and with the naive
-    attention path, on the same weights and prompt: logits (3, B, V) each."""
+def reset_launches():
+    K1.flash_attention.launches = 0
+    K2.decode_attention.launches = 0
+    K3.ssd_scan.launches = 0
+
+
+def read_launches():
+    return {"flash_attention": K1.flash_attention.launches,
+            "decode_attention": K2.decode_attention.launches,
+            "ssd_scan": K3.ssd_scan.launches}
+
+
+def _kernel_and_naive_logits(cfg, params, prompt=PROMPT):
+    """Prefill + 2 decode steps with the kernels and with the naive paths
+    (attention, SSD scan), on the same weights and prompt: logits (3, B, V)
+    each."""
     toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (BATCH, PROMPT)).astype(np.int64)).to(DEV)
+        0, cfg.vocab, (BATCH, prompt)).astype(np.int64)).to(DEV)
     runs = {}
     with torch.inference_mode():
         for impl in ("kernel", "naive"):
             hl, caches, s = M.prefill(params, cfg, {"tokens": toks}, impl=impl,
-                                      capacity=PROMPT + 2)
+                                      capacity=prompt + 2)
             lgs = [hl @ params["embed"].T]
             for step in range(2):
                 tok = toks[:, step:step + 1]
@@ -359,17 +481,24 @@ def phase_kernel_vs_naive(server):
         f"logit diff {diff32:.4e} (tol {TOL[torch.float32]}) {'ok' if ok32 else 'FAIL'}")
     assert ok32 and torch.isfinite(kern).all()
 
-    tol = TOL[torch.bfloat16]
     kern, naive = _kernel_and_naive_logits(server.config, server.params[server.active])
+    _bf16_greedy_agreement(f"{server.name} full width", kern, naive)
+
+
+def _bf16_greedy_agreement(label, kern, naive):
+    """bf16 logits of the kernel and naive paths: the difference is printed
+    beside the tolerance, and the greedy tokens must agree wherever the
+    naive path's top-2 margin exceeds it."""
+    tol = TOL[torch.bfloat16]
     diff = (kern - naive).abs().max().item()
     close = torch.isclose(kern, naive, atol=tol, rtol=tol).float().mean().item()
     top2 = naive.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > tol
     agree = (kern.argmax(-1) == naive.argmax(-1))[clear]
-    log(f"kernel vs naive ({server.name} full width, bf16, prefill + 2 decode steps): max "
-        f"logit diff {diff:.4e}, {close:.6f} of logits within atol=rtol={tol}; greedy tokens "
-        f"agree on {int(agree.sum())}/{int(clear.sum())} positions whose top-2 margin "
-        f"exceeds {tol} (of {clear.numel()})")
+    log(f"kernel vs naive ({label}, bf16, prefill + 2 decode steps): max logit diff "
+        f"{diff:.4e}, {close:.6f} of logits within atol=rtol={tol}; greedy tokens agree on "
+        f"{int(agree.sum())}/{int(clear.sum())} positions whose top-2 margin exceeds {tol} "
+        f"(of {clear.numel()})")
     assert torch.isfinite(kern).all()
     assert bool(agree.all())
 
@@ -411,6 +540,96 @@ def phase_profile(phi_server):
     log(f"profile phase: {time.perf_counter() - t0:.1f} s; pipeline SLA_P {pipe.sla:.6f} s")
 
 
+# ---------------------------------------------------------------------------
+# the Mamba2 path
+# ---------------------------------------------------------------------------
+def phase_serve_mamba():
+    """mamba2-2.7b at its published config as a one-stage pipeline: batch 4,
+    1024-token prompts, 8 generated tokens; every prefill runs K3 once per
+    layer and decode runs no kernel of the port."""
+    cfg = configs.get_config("mamba2-2.7b")
+    s = cfg.ssm
+    log(f"mamba2-2.7b: published config, {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"d_state {s.d_state}, head_dim {s.head_dim} ({s.n_heads(cfg.d_model)} heads), "
+        f"expand {s.expand}, groups {s.n_groups}, chunk {s.chunk_size}, vocab {cfg.vocab}; "
+        f"{cfg.n_params() / 1e9:.2f} B params, {cfg.n_params() * 2 / 2**30:.2f} GiB of bf16 "
+        "weights")
+    acc = max(x for _, _, x in configs.get_variant_family("mamba2-2.7b"))
+    t0 = time.perf_counter()
+    server = StageServer("mamba2-2.7b", [("mamba2-2.7b", cfg, acc)], gen_tokens=GEN,
+                         max_ctx=MAMBA_PROMPT + GEN, seed=3)
+    torch.cuda.synchronize()
+    log(f"init: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    engine = PipelineEngine([server])
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, (BATCH, MAMBA_PROMPT)).astype(np.int32)
+               for _ in range(3)]
+    engine.serve(prompts[0])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    lats = []
+    for p in prompts[1:]:
+        out, lat = engine.serve(p)
+        lats.append(lat)
+        assert out.shape == (BATCH, GEN) and out.dtype == np.int32
+        assert ((out >= 0) & (out < cfg.vocab)).all()
+        log(f"served batch B={BATCH} S={MAMBA_PROMPT}: tokens {out.tolist()}, stage latency "
+            f"{lat[0] * 1e3:.3f} ms, PAS {engine.pas:.4f}")
+    launches = read_launches()
+    n_batches = len(prompts) - 1
+    log(f"launches over {n_batches} batches: {launches} (expected ssd_scan "
+        f"{cfg.n_layers * n_batches}, no attention); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    assert launches == {"flash_attention": 0, "decode_attention": 0,
+                        "ssd_scan": cfg.n_layers * n_batches}, launches
+    return server, launches, lats
+
+
+def phase_mamba_kernel_vs_naive(server):
+    """The full-width stage through K3 and through the naive SSD path, with
+    a prompt of whole chunks (1024) and one with a ragged tail (1000).  In
+    f32 (fresh weights from a seed) the logits agree within the reference's
+    Mamba tolerance; in bf16 (the served weights) the greedy tokens agree
+    where the top-2 margin exceeds 2e-2."""
+    cfg32 = dataclasses.replace(server.config, dtype=torch.float32)
+    params32 = M.init(cfg32, seed=4)
+    for prompt in (MAMBA_PROMPT, 1000):
+        kern, naive = _kernel_and_naive_logits(cfg32, params32, prompt)
+        diff = (kern - naive).abs().max().item()
+        ok = torch.allclose(kern, naive, **MAMBA_TOL)
+        log(f"kernel vs naive (mamba2-2.7b full width, f32, S={prompt}, prefill + 2 decode "
+            f"steps): max logit diff {diff:.4e}, max |logit| {naive.abs().max().item():.3e} "
+            f"(atol {MAMBA_TOL['atol']}, rtol {MAMBA_TOL['rtol']}) {'ok' if ok else 'FAIL'}")
+        assert ok and torch.isfinite(kern).all()
+    del params32
+    torch.cuda.empty_cache()
+    for prompt in (MAMBA_PROMPT, 1000):
+        kern, naive = _kernel_and_naive_logits(server.config, server.params[server.active],
+                                               prompt)
+        _bf16_greedy_agreement(f"mamba2-2.7b full width, S={prompt}", kern, naive)
+
+
+def phase_profile_mamba(server):
+    """The reduced mamba2 family as ``build_pipeline`` profiles a stage
+    (nlp-chain itself waits for the MoE slice), and the full-width stage."""
+    t0 = time.perf_counter()
+    fam = configs.get_variant_family("mamba2-2.7b")
+    reduced = StageServer("mamba2-2.7b", fam, gen_tokens=4)
+    for srv, label in ((reduced, "reduced f32 family"), (server, "full width")):
+        profs = PF.profile_stage_server(srv, batches=(1, 2, 4))
+        stage = PF.build_stage(srv.name, profs, th=2.0, batch_choices=(1, 2, 4),
+                               max_batch=4)
+        for p in profs:
+            log(f"profiled {label} {p.name}: batches {p.batches} latencies "
+                f"{[f'{x * 1e3:.3f} ms' for x in p.latencies]}")
+        for v in stage.variants:
+            log(f"  {v.name}: latency(1) {float(v.latency(1)) * 1e3:.4f} ms, "
+                f"base_alloc {v.base_alloc}")
+        log(f"  stage SLA {stage.sla:.6f} s")
+    log(f"mamba2 profile phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -422,10 +641,22 @@ def main() -> int:
                 float(np.mean([sum(lat) for lat in lats])))
     phase_kernel_vs_naive(servers[0])
     phase_profile(servers[0])
+    del servers
+    gc.collect()
+    torch.cuda.empty_cache()
+    mamba, m_launches, m_lats = phase_serve_mamba()
+    phase_trace(PipelineEngine([mamba]), np.zeros((BATCH, MAMBA_PROMPT), np.int32),
+                float(np.mean([lat[0] for lat in m_lats])))
+    phase_mamba_kernel_vs_naive(mamba)
+    phase_profile_mamba(mamba)
+    # each kernel's launches come from the run of the path it is on
+    launches["ssd_scan"] = m_launches["ssd_scan"]
     sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:71", "phi-3 prefill"),
                "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:60", "phi-3 decode")}
+                                    "src/repro/kernels/decode_attention.py:60", "phi-3 decode"),
+               "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan.py:70", "mamba2-2.7b prefill")}
     kernels = []
     for name, (source, replaces, shape) in sources.items():
         t = times[(name, shape)]

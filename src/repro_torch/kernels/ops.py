@@ -6,7 +6,9 @@ launches the kernel; there is no interpret mode and no switch between the
 two.  ``q_pos``/``k_pos`` and the block sizes are accepted so that callers
 of the reference run unchanged: the reference wrapper ignores the positions
 too, and the CUDA kernels tile with the fixed 64-row tiles they were written
-for.
+for.  ``ssd_scan`` does not cap the chunk at S as the reference wrapper
+does: the kernel masks the ragged tail, so S need not be a multiple of the
+chunk.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
@@ -25,3 +28,8 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
 
 def decode_attention(q, k_cache, v_cache, lengths, *, block_k: int = 128):
     return _dec.decode_attention(q, k_cache, v_cache, lengths)
+
+
+def ssd_scan(x, dt, a_neg, b_mat, c_mat, *, chunk: int = 256, init_state=None):
+    return _ssd.ssd_scan(x, dt, a_neg, b_mat, c_mat, chunk=chunk,
+                         init_state=init_state)

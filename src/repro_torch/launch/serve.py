@@ -19,6 +19,7 @@ from repro_torch import configs
 from repro_torch import device as D
 from repro_torch.core import profiler as PF
 from repro_torch.core.pipeline import PipelineModel
+from repro_torch.models import stack as ST
 from repro_torch.serving.engine import PipelineEngine, StageServer
 
 # pipelines over the assigned architectures (analogues of the paper's five)
@@ -36,8 +37,14 @@ ENGINE_PIPELINES = {
 def build_pipeline(name: str, *, gen_tokens: int = 4, profile_batches=(1, 2, 4),
                    th: float = 2.0, verbose: bool = True,
                    device: D.DeviceLike = None):
-    """Returns (PipelineModel for the control plane, PipelineEngine)."""
+    """Returns (PipelineModel for the control plane, PipelineEngine).
+
+    Raises ``NotImplementedError`` before profiling anything if a stage's
+    layers come with a later slice of the port (``nlp-chain``'s qwen2-moe
+    stage needs the MoE slice)."""
     dev = D.resolve(device)
+    for arch, _ in ENGINE_PIPELINES[name]:
+        ST.layer_specs(configs.get_config(arch))
     servers = []
     stages = []
     for arch, _ in ENGINE_PIPELINES[name]:

@@ -5,8 +5,10 @@ The reference stacks the parameters of repeated pattern blocks:
 ``stack["blocks"][j]`` holds pattern position ``j`` of every repetition ``r``
 along a leading axis, which is layer ``r * period + j``; ``stack["rem"][j]``
 is layer ``n_rep * period + j``.  The port keeps one dictionary per layer.
-bf16 leaves (``ml_dtypes.bfloat16`` arrays) pass through float32, which
-holds every bf16 value exactly.
+Each leaf keeps its own type: a bf16 model's ``A_log``, ``D`` and
+``dt_bias`` stay f32, as in the reference.  bf16 leaves
+(``ml_dtypes.bfloat16`` arrays) pass through float32, which holds every
+bf16 value exactly.
 """
 from __future__ import annotations
 
@@ -18,8 +20,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import stack as ST
 
 
-def _tensor(a, dtype, device):
-    return torch.from_numpy(np.asarray(a).astype(np.float32)).to(device=device, dtype=dtype)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name not in _DTYPES:
+        raise ValueError(f"parameter of dtype {a.dtype}: want one of {list(_DTYPES)}")
+    return torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                      dtype=_DTYPES[a.dtype.name])
 
 
 def _map(tree, fn):
@@ -34,7 +43,7 @@ def params_from_jax(params_np, cfg: ModelConfig, *, device: D.DeviceLike = None)
     dev = D.resolve(device)
     ST.layer_specs(cfg)   # raises for the layer kinds of later slices
     pl = ST.plan(cfg)
-    conv = lambda a: _tensor(a, cfg.dtype, dev)  # noqa: E731
+    conv = lambda a: _tensor(a, dev)  # noqa: E731
     layers = [None] * cfg.n_layers
     for j, block in enumerate(params_np["stack"]["blocks"]):
         for r in range(pl.n_rep):

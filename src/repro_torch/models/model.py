@@ -1,5 +1,5 @@
-"""Top-level model API of the attention families, after
-``repro/models/model.py``.
+"""Top-level model API of the dense, VLM and Mamba2 (``ssm``) families,
+after ``repro/models/model.py``.
 
   init(cfg, seed=, device=)                -> params
   forward(params, cfg, batch, ...)         -> hidden (B,S,d)
@@ -11,7 +11,10 @@
 vlm (the projected patch stub), prepended to the token embeddings.  The
 decode path operates past the prefix.  Parameters are a dictionary:
 ``embed`` (V, d), ``stack`` (a list of per-layer dictionaries in layer
-order) and ``final_norm`` (d,).
+order) and ``final_norm`` (d,).  A layer's cache is ``{"k", "v"}`` for
+attention and ``{"conv", "state"}`` (the last ``d_conv - 1`` conv inputs in
+the model's type, the SSM state in f32) for Mamba2; ``impl`` picks the
+kernels or the naive paths of attention and the SSD scan alike.
 """
 from __future__ import annotations
 
@@ -84,7 +87,8 @@ def decode_step(params, cfg: ModelConfig, caches, cache_len: int, tokens, *,
                 impl="kernel"):
     """tokens: (B, 1) integer tensor; cache_len: the current context length.
 
-    Returns (logits (B, V), caches).  The caches are updated in place."""
+    Returns (logits (B, V), caches).  Attention layers update their KV
+    caches in place; Mamba2 layers return a new conv window and state."""
     x = params["embed"][tokens]
     x, caches = ST.apply_stack(params["stack"], cfg, x, None, impl=impl,
                                caches=caches, cache_len=cache_len, mode="decode")

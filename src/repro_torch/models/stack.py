@@ -1,13 +1,15 @@
-"""The layer stack of the attention families, after ``repro/models/stack.py``.
+"""The layer stack, after ``repro/models/stack.py``.
 
 The reference scans over repeated pattern blocks with stacked parameters;
 the port keeps a plain list of per-layer parameter and cache dictionaries in
 layer order and loops over it in Python (``plan`` is kept: it names the
 layer pattern and tells ``convert`` how to unstack reference parameters).
 
-This slice runs dense and VLM decoders: embed -> L x [rms_norm -> RoPE GQA
-attention -> rms_norm -> MLP].  Mamba2, MoE and cross-attention layers
-raise ``NotImplementedError`` naming the slice that brings them.
+The port runs dense and VLM decoders, embed -> L x [rms_norm -> RoPE GQA
+attention -> rms_norm -> MLP], and Mamba2 stacks, whose layers put the SSD
+mixer in the attention's place (with the MLP only where ``d_ff > 0``).  MoE
+and cross-attention layers raise ``NotImplementedError`` naming the slice
+that brings them.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 class LayerSpec(NamedTuple):
@@ -70,10 +73,6 @@ def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     specs = [pl.pattern[j] for _ in range(pl.n_rep) for j in range(pl.period)]
     specs += list(pl.rem)
     for spec in specs:
-        if not spec.is_attn:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: Mamba2 layers come with the models/ssm.py "
-                "slice (ROADMAP queue 1, item 8)")
         if spec.is_moe:
             raise NotImplementedError(
                 f"{cfg.arch_id}: MoE layers come with the models/moe.py "
@@ -92,9 +91,12 @@ def _window(cfg: ModelConfig, spec: LayerSpec) -> Optional[int]:
 # ---------------------------------------------------------------------------
 def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
     d, dt = cfg.d_model, cfg.dtype
-    p = {"ln1": torch.zeros((d,), dtype=dt, device=gen.device),
-         "attn": L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                  cfg.head_dim_, dt)}
+    p = {"ln1": torch.zeros((d,), dtype=dt, device=gen.device)}
+    if spec.is_attn:
+        p["attn"] = L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.head_dim_, dt)
+    else:
+        p["ssm"] = S.init_mamba(gen, d, cfg.ssm, dt)
     if cfg.d_ff > 0:
         p["ln2"] = torch.zeros((d,), dtype=dt, device=gen.device)
         p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_gated, dt)
@@ -110,6 +112,13 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 def _layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, capacity: int,
                  device):
+    if not spec.is_attn:
+        s = cfg.ssm
+        conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+        return {"conv": torch.zeros((batch, s.d_conv - 1, conv_dim), dtype=cfg.dtype,
+                                    device=device),
+                "state": torch.zeros((batch, s.n_heads(cfg.d_model), s.head_dim,
+                                      s.d_state), dtype=torch.float32, device=device)}
     cap = capacity
     if cfg.sliding_window is not None and not spec.is_global:
         cap = min(cfg.sliding_window, capacity)
@@ -129,13 +138,21 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device):
 def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
                 impl="kernel", cache=None, cache_len=None, mode="train",
                 capacity: Optional[int] = None):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache).  ``impl`` picks the kernel or the naive path
+    of attention and of the SSD scan alike."""
     new_cache = {}
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
-    window = _window(cfg, spec)
-    if mode == "decode":
+    if not spec.is_attn:
+        if mode == "decode":
+            a, new_cache = S.mamba_decode(params["ssm"], h, cache, cfg.d_model, cfg.ssm)
+        else:
+            a, st = S.mamba_forward(params["ssm"], h, cfg.d_model, cfg.ssm, impl=impl)
+            if mode == "prefill":
+                new_cache = st
+    elif mode == "decode":
         a, new_cache = _attn_decode(params["attn"], cfg, h, cache, cache_len, impl)
     else:
+        window = _window(cfg, spec)
         a, (k, v) = L.attn_block(params["attn"], h, positions, cfg.rope_theta,
                                  window=window, causal=True, impl=impl)
         if mode == "prefill":

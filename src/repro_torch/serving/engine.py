@@ -7,7 +7,8 @@ family of model variants for it.  ``set_variant`` switches the active
 parameters -- the serving analogue of the paper's model switching.  A
 ``PipelineEngine`` chains stages: the token output of stage i is the prompt
 of stage i+1.  Prefill attention runs the flash attention kernel and every
-decode step the decode attention kernel (their plain versions on the CPU).
+decode step the decode attention kernel; a Mamba2 layer's prefill runs the
+SSD scan kernel (their plain versions on the CPU).
 """
 from __future__ import annotations
 

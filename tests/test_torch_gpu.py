@@ -7,7 +7,12 @@ runs on a machine that has only PyTorch:
 
   PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances are the reference's: 2e-4 for f32, 2e-2 for bf16.
+Tolerances are the reference's: 2e-4 for f32, 2e-2 for bf16; the SSD scan
+in f32 takes the reference's own SSD tolerance (atol 5e-4, rtol 5e-3,
+tests/test_kernels.py): the kernel's cumsum adds in another order than
+torch.cumsum, and a difference of two cums near 2900 carries a few 1e-4 of
+absolute error into exp, and the Mamba model paths the reference's Mamba
+layer tolerance (atol 1e-3, rtol 1e-2).
 """
 import dataclasses
 
@@ -18,6 +23,7 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels import decode_attention as K2
 from repro_torch.kernels import flash_attention as K1
+from repro_torch.kernels import ssd_scan as K3
 from repro_torch.models import model as M
 from repro_torch.serving.engine import StageServer
 
@@ -25,6 +31,9 @@ pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+SSD_TOL = {torch.float32: dict(atol=5e-4, rtol=5e-3),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+MAMBA_TOL = dict(atol=1e-3, rtol=1e-2)
 
 
 def _need_cuda():
@@ -151,3 +160,129 @@ def test_full_width_layer_kernel_path_matches_naive_path():
         hk = M.forward(params, cfg, {"tokens": toks}, impl="kernel")
         hn = M.forward(params, cfg, {"tokens": toks}, impl="naive")
     _close(hk, hn, torch.float32)
+
+
+def _ssd_inputs(seed, b, s, h, p, g, n, dtype):
+    """x, B, C standard normal; dt = softplus(normal); a_neg = -linspace(1,
+    16, H), the decay rates of init_mamba (a 256-row chunk then spans
+    |cum| of a few thousand)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, s, h)).astype(np.float32)))
+    bm = torch.from_numpy(rng.standard_normal((b, s, g, n)).astype(np.float32))
+    cm = torch.from_numpy(rng.standard_normal((b, s, g, n)).astype(np.float32))
+    a_neg = -torch.linspace(1.0, 16.0, h)
+    return (x.to("cuda", dtype), dt.cuda(), a_neg.cuda(), bm.to("cuda", dtype),
+            cm.to("cuda", dtype))
+
+
+def _close_ssd(got, want, dtype):
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **SSD_TOL[dtype])
+
+
+# (b, s, h, p, g, n, chunk, dtype): mamba2-2.7b at full width (S 4 is what
+# nlp-chain hands its third stage, S 1000 a ragged tail), the reduced
+# family's widths, G > 1, and the other chunk sizes and head widths
+SSD = [
+    (4, 4, 80, 64, 1, 128, 256, torch.bfloat16),
+    (4, 1000, 80, 64, 1, 128, 256, torch.float32),
+    (4, 1024, 80, 64, 1, 128, 256, torch.bfloat16),
+    (2, 100, 16, 32, 1, 16, 32, torch.float32),
+    (2, 96, 8, 32, 2, 16, 32, torch.float32),
+    (2, 130, 4, 16, 4, 8, 64, torch.float32),
+    (1, 300, 6, 64, 3, 32, 128, torch.bfloat16),
+    (2, 40, 4, 32, 1, 64, 16, torch.float32),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,dtype", SSD)
+def test_ssd_kernel_matches_plain(b, s, h, p, g, n, chunk, dtype):
+    _need_cuda()
+    args = _ssd_inputs(8, b, s, h, p, g, n, dtype)
+    k = K3.ssd_scan.launches
+    y, final = K3.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K3.ssd_scan.launches == k + 1
+    assert y.dtype == dtype and y.shape == (b, s, h, p) and final.dtype == torch.float32
+    y_want, f_want = K3.ssd_scan_plain(*args, chunk)
+    _close_ssd(y, y_want, dtype)
+    _close_ssd(final, f_want, torch.float32)
+
+
+@pytest.mark.parametrize("chunk", [32, 256])
+def test_ssd_kernel_init_state_continuation(chunk):
+    """Two halves with the first half's final state carried == one pass."""
+    _need_cuda()
+    x, dt, a_neg, bm, cm = _ssd_inputs(9, 2, 600, 16, 64, 1, 128, torch.float32)
+    y, final = K3.ssd_scan(x, dt, a_neg, bm, cm, chunk=chunk)
+    m = 333
+    y1, f1 = K3.ssd_scan(x[:, :m].contiguous(), dt[:, :m].contiguous(), a_neg,
+                         bm[:, :m].contiguous(), cm[:, :m].contiguous(), chunk=chunk)
+    y2, f2 = K3.ssd_scan(x[:, m:].contiguous(), dt[:, m:].contiguous(), a_neg,
+                         bm[:, m:].contiguous(), cm[:, m:].contiguous(), chunk=chunk,
+                         init_state=f1)
+    _close_ssd(torch.cat([y1, y2], dim=1), y, torch.float32)
+    _close_ssd(f2, final, torch.float32)
+    y_want, f_want = K3.ssd_scan_plain(x[:, m:], dt[:, m:], a_neg, bm[:, m:], cm[:, m:],
+                                       chunk, init_state=f1)
+    _close_ssd(y2, y_want, torch.float32)
+    _close_ssd(f2, f_want, torch.float32)
+
+
+def test_ssd_wrapper_refuses_before_launching():
+    _need_cuda()
+    x, dt, a_neg, bm, cm = _ssd_inputs(10, 1, 8, 4, 48, 1, 16, torch.float32)
+    k = K3.ssd_scan.launches
+    with pytest.raises(ValueError):
+        K3.ssd_scan(x, dt, a_neg, bm, cm, chunk=32)
+    assert K3.ssd_scan.launches == k
+
+
+@pytest.mark.parametrize("s", [70, 64])
+def test_mamba_kernel_path_matches_naive_path(s):
+    """Reduced mamba2: prefill (ragged and whole chunks) and decode, f32."""
+    _need_cuda()
+    cfg = configs.get_config("mamba2-2.7b", reduced=True)
+    params = M.init(cfg, seed=0)
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab, (2, s + 4))).cuda()
+    out = {}
+    with torch.inference_mode():
+        for impl in ("kernel", "naive"):
+            hl, caches, _ = M.prefill(params, cfg, {"tokens": toks[:, :s]}, impl=impl)
+            lgs = [hl @ params["embed"].T]
+            for t in range(s, s + 4):
+                lg, caches = M.decode_step(params, cfg, caches, t, toks[:, t:t + 1], impl=impl)
+                lgs.append(lg)
+            out[impl] = torch.stack(lgs)
+    np.testing.assert_allclose(out["kernel"].cpu().numpy(), out["naive"].cpu().numpy(),
+                               **MAMBA_TOL)
+
+
+def test_engine_runs_the_ssd_kernel():
+    _need_cuda()
+    fam = configs.get_variant_family("mamba2-2.7b")
+    srv = StageServer("mamba2-2.7b", fam, gen_tokens=3)
+    for name, cfg, _ in fam:
+        srv.set_variant(name)
+        srv.process(np.zeros((2, 40), np.int32))
+        k = K3.ssd_scan.launches
+        out, lat = srv.process(np.arange(80, dtype=np.int32).reshape(2, 40))
+        assert K3.ssd_scan.launches - k == cfg.n_layers
+        assert out.shape == (2, 3) and lat > 0
+
+
+def test_full_width_mamba_layer_kernel_path_matches_naive_path():
+    """One mamba2-2.7b layer at full width (80 heads of 64, d_state 128,
+    chunk 256), f32, a ragged 300-token prompt."""
+    _need_cuda()
+    cfg = dataclasses.replace(configs.get_config("mamba2-2.7b"), n_layers=1,
+                              dtype=torch.float32)
+    params = M.init(cfg, seed=0)
+    toks = torch.from_numpy(np.random.default_rng(12).integers(0, cfg.vocab, (2, 300))).cuda()
+    with torch.inference_mode():
+        hk = M.forward(params, cfg, {"tokens": toks}, impl="kernel")
+        hn = M.forward(params, cfg, {"tokens": toks}, impl="naive")
+    np.testing.assert_allclose(hk.cpu().numpy(), hn.cpu().numpy(), **MAMBA_TOL)

@@ -1,4 +1,4 @@
-"""The port's attention kernels (repro_torch.kernels) against the reference.
+"""The port's kernels (repro_torch.kernels) against the reference.
 
 On the CPU a kernel wrapper computes its plain PyTorch version; it is held
 against the reference's oracles (``repro.kernels.ref``) and its Pallas
@@ -7,7 +7,8 @@ tests/test_torch_gpu.py holds each CUDA kernel against its plain version on
 the card.
 
 Tolerances are the reference's own (tests/test_kernels.py): 2e-4 for f32,
-2e-2 for bf16.
+2e-2 for bf16, and for the SSD scan atol 5e-4 / rtol 5e-3 in f32 (its
+chunked sums add in another order than the recurrence).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,11 +20,14 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as tssd
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": dict(atol=2e-4, rtol=2e-4),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+SSD_TOL = {"float32": dict(atol=5e-4, rtol=5e-3),
+           "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 
 
 def _pair(a, dtype):
@@ -179,10 +183,13 @@ def test_decode_ignores_slots_past_length():
 
 def test_cpu_tensors_launch_no_kernel():
     (_, qt), (_, kt), (_, vt) = _attn_inputs(7, 1, 8, 2, 2, 32, "float32")
-    before = (tfa.flash_attention.launches, tdec.decode_attention.launches)
+    before = (tfa.flash_attention.launches, tdec.decode_attention.launches,
+              tssd.ssd_scan.launches)
     ops.flash_attention(qt, kt, vt)
     ops.decode_attention(qt[:, 0], kt, vt, torch.tensor([8], dtype=torch.int32))
-    assert (tfa.flash_attention.launches, tdec.decode_attention.launches) == before
+    ops.ssd_scan(*[t for _, t in _ssd_inputs(7, 1, 20, 2, 16, 1, 8, "float32")], chunk=16)
+    assert (tfa.flash_attention.launches, tdec.decode_attention.launches,
+            tssd.ssd_scan.launches) == before
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "contiguity", "group",
@@ -221,3 +228,103 @@ def test_decode_wrapper_rejects_what_the_kernel_does_not_take(bad):
         lengths = lengths[:1]
     with pytest.raises(ValueError):
         ops.decode_attention(q, kc, kc.clone(), lengths)
+
+
+def _ssd_inputs(seed, b, s, h, p, g, n, dtype):
+    """x, dt (softplus'ed), a_neg, B, C as (jax, torch) pairs; x, B, C in
+    ``dtype``, dt and a_neg in f32, as the Mamba layer hands them over."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, s, h)), 0.0).astype(np.float32)
+    a_neg = -np.exp(rng.standard_normal(h)).astype(np.float32)
+    bm = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    cm = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    return [_pair(x, dtype), _pair(dt, "float32"), _pair(a_neg, "float32"),
+            _pair(bm, dtype), _pair(cm, dtype)]
+
+
+# the sweep of tests/test_kernels.py (b, s, h, p, g, n, chunk), and bf16
+SSD_SWEEP = [
+    (2, 128, 4, 16, 2, 8, 32, "float32"),
+    (1, 64, 2, 32, 1, 16, 16, "float32"),
+    (2, 96, 4, 16, 4, 8, 32, "float32"),
+    (1, 64, 4, 32, 2, 16, 32, "bfloat16"),
+]
+
+
+@pytest.fixture
+def ssd_case(request):
+    b, s, h, p, g, n, chunk, dtype = request.param
+    pairs = _ssd_inputs(4, b, s, h, p, g, n, dtype)
+    return [j for j, _ in pairs], [t for _, t in pairs], chunk, dtype
+
+
+@pytest.mark.parametrize("ssd_case", SSD_SWEEP, indirect=True)
+def test_ssd_plain_matches_pallas_interpret(ssd_case):
+    jargs, targs, chunk, dtype = ssd_case
+    y_want, f_want = jops.ssd_scan(*jargs, chunk=chunk, interpret=True)
+    y, f = ops.ssd_scan(*targs, chunk=chunk)
+    assert y.dtype == targs[0].dtype and f.dtype == torch.float32
+    np.testing.assert_allclose(_np(y), _np(y_want), **SSD_TOL[dtype])
+    np.testing.assert_allclose(_np(f), _np(f_want), **SSD_TOL["float32"])
+
+
+@pytest.mark.parametrize("ssd_case", SSD_SWEEP, indirect=True)
+def test_ssd_plain_matches_reference_recurrence(ssd_case):
+    """Both packages' O(S) recurrence oracles, and the port's scan against
+    the reference's oracle."""
+    jargs, targs, chunk, dtype = ssd_case
+    y_want, f_want = jref.ssd_scan_ref(*jargs)
+    y_ref, f_ref = ref.ssd_scan_ref(*targs)
+    np.testing.assert_allclose(_np(y_ref), _np(y_want), **SSD_TOL["float32"])
+    np.testing.assert_allclose(_np(f_ref), _np(f_want), **SSD_TOL["float32"])
+    y, f = ops.ssd_scan(*targs, chunk=chunk)
+    np.testing.assert_allclose(_np(y), _np(y_want), **SSD_TOL[dtype])
+    np.testing.assert_allclose(_np(f), _np(f_want), **SSD_TOL["float32"])
+
+
+def test_ssd_continuation_matches_pallas_interpret():
+    """The reference's split (tests/test_kernels.py) on both packages: the
+    second half starts from the first half's final state."""
+    pairs = _ssd_inputs(5, 1, 128, 2, 16, 1, 8, "float32")
+    jargs, targs = [j for j, _ in pairs], [t for _, t in pairs]
+    m = 64
+    half = lambda args, sl: [a if a.ndim == 1 else a[:, sl] for a in args]  # noqa: E731
+    _, jf1 = jops.ssd_scan(*half(jargs, slice(0, m)), chunk=32, interpret=True)
+    jy2, jf2 = jops.ssd_scan(*half(jargs, slice(m, None)), chunk=32, init_state=jf1,
+                             interpret=True)
+    _, f1 = ops.ssd_scan(*[t.contiguous() for t in half(targs, slice(0, m))], chunk=32)
+    y2, f2 = ops.ssd_scan(*[t.contiguous() for t in half(targs, slice(m, None))], chunk=32,
+                          init_state=f1)
+    np.testing.assert_allclose(_np(f1), _np(jf1), **SSD_TOL["float32"])
+    np.testing.assert_allclose(_np(y2), _np(jy2), **SSD_TOL["float32"])
+    np.testing.assert_allclose(_np(f2), _np(jf2), **SSD_TOL["float32"])
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "d_state", "chunk", "dtype", "dt_dtype",
+                                 "contiguity", "groups", "init_state"])
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    b, s, h, p, g, n, chunk = 1, 8, 4, 16, 2, 8, 16
+    if bad == "head_dim":
+        p = 48
+    if bad == "d_state":
+        n = 12
+    if bad == "chunk":
+        chunk = 48
+    if bad == "groups":
+        g = 3
+    x = torch.zeros((b, s, h, p))
+    dt = torch.zeros((b, s, h))
+    a_neg = -torch.ones(h)
+    bm, cm = torch.zeros((b, s, g, n)), torch.zeros((b, s, g, n))
+    init = None
+    if bad == "dtype":
+        bm = bm.to(torch.bfloat16)
+    if bad == "dt_dtype":
+        dt = dt.to(torch.bfloat16)
+    if bad == "contiguity":
+        x = torch.zeros((b, h, s, p)).transpose(1, 2)
+    if bad == "init_state":
+        init = torch.zeros((b, h, p, n), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt, a_neg, bm, cm, chunk=chunk, init_state=init)

@@ -1,14 +1,16 @@
 """repro_torch.models.model against repro.models.model on the reference's own
 parameters (``repro.models.model.init``, converted through numpy).
 
-For each reduced architecture of the vlm-classify path and the two
-sliding-window families, the same tokens (and patches) go through
-``forward``, ``prefill`` and several ``decode_step``s of both packages; the
-hidden states, logits and KV caches must agree.  The sliding-window cases
-decode across the window boundary and prefill past it, so the ring buffer
-wraps both ways (the pattern of tests/test_long_context.py).  The reference
-runs its naive attention; the port runs ``impl="kernel"``, which on the CPU
-is each kernel's plain version.
+For each reduced architecture of the vlm-classify path, the two
+sliding-window families and mamba2, the same tokens (and patches) go
+through ``forward``, ``prefill`` and several ``decode_step``s of both
+packages; the hidden states, logits and caches (KV, or Mamba2's conv window
+and SSM state) must agree.  The sliding-window cases decode across the
+window boundary and prefill past it, so the ring buffer wraps both ways
+(the pattern of tests/test_long_context.py); the mamba2 cases prefill a
+ragged tail past a whole chunk and a prompt shorter than the conv window.
+The reference runs its naive attention and its jnp SSD path; the port runs
+``impl="kernel"``, which on the CPU is each kernel's plain version.
 
 Tolerances are the reference's: 2e-4 for f32, 2e-2 for bf16.  In bf16 the
 two frameworks round their elementwise ops differently (XLA's CPU logistic,
@@ -45,6 +47,9 @@ CASES = {
     "starcoder2_roll": ("starcoder2-3b", 2, 128, "float32", 70, 3, False),
     "gemma3_ring": ("gemma3-27b", 2, 128, "float32", 60, 8, False),
     "gemma3_roll": ("gemma3-27b", 2, 128, "float32", 70, 3, False),
+    "mamba2": ("mamba2-2.7b", 2, 128, "float32", 45, 4, False),
+    "mamba2_short": ("mamba2-2.7b", 2, 128, "float32", 2, 4, False),
+    "mamba2_bf16": ("mamba2-2.7b", 2, 128, "bfloat16", 40, 2, False),
 }
 B = 2
 
@@ -189,7 +194,7 @@ def _top2_margin(lg):
     return top[..., 1] - top[..., 0]
 
 
-@pytest.mark.parametrize("run", ["yi_bf16"], indirect=True)
+@pytest.mark.parametrize("run", ["yi_bf16", "mamba2_bf16"], indirect=True)
 def test_bf16_greedy_tokens_agree_where_the_margin_allows(run):
     want = np.concatenate([run["forward"][1], run["decode"].transpose(1, 0, 2)], axis=1)
     got = np.concatenate([run["forward_port"][1], run["decode_port"].transpose(1, 0, 2)],
@@ -216,7 +221,7 @@ def test_prompt_longer_than_cache_raises():
 
 
 def test_later_slices_raise_not_implemented():
-    for arch, what in (("mamba2-2.7b", "Mamba2"), ("qwen2-moe-a2.7b", "MoE"),
+    for arch, what in (("jamba-v0.1-52b", "MoE"), ("qwen2-moe-a2.7b", "MoE"),
                        ("whisper-medium", "enc-dec")):
         with pytest.raises(NotImplementedError, match=what):
             TM.init(TC.get_config(arch, reduced=True), device="cpu")
