@@ -8,14 +8,26 @@ limit): per (batch, head) the causal product does about S^2/2 * 4 * hd
 FLOPs on 4 * S * hd elements of Q, K, V and O, about S / 4 FLOPs a byte in
 bf16.  The card's ridge is about 295 FLOPs a byte (989 TFLOP/s bf16 over
 3.35 TB/s), so at the serving path's prompt lengths (S = 8 to 512) the
-bound is the bytes; it turns to the FLOPs only above S of about 1200.  This
-kernel does its products on the f32 CUDA cores (67 TFLOP/s, and no TF32
-rounding of f32 inputs), so it is held by its own arithmetic well above
-either bound.  What the design does
-about it: it never writes the S x S scores to device memory (online softmax
-in registers), reads each K/V tile once per query tile into shared memory,
-and skips the key tiles that the causal mask or the window hides entirely.
-Tensor-core products (``wgmma``) and TMA loads are the next step.
+bound is the bytes; it turns to the FLOPs only above S of about 1200.
+
+The kernel is chosen by dtype, and each dtype has exactly one:
+
+* bf16, the serving path: FlashAttention-2 on the tensor cores.  Eight
+  warps a 128-query tile, 16 rows each, ``mma.sync`` m16n8k16 for Q K^T
+  and for P V with the score fragment exponentiated in registers and fed
+  back as P, K and V tiles bf16 in padded shared rows (ldmatrix without
+  bank conflicts at hd 96 and 128) arriving by ``cp.async`` into a
+  two-stage ring, so loads overlap products and two blocks share an SM.
+  The loads and the per-tile work, not the tensor-core rate, are what
+  separate it from its bound below S of about 1200; ``wgmma`` and TMA
+  are the next step.
+* f32, the reduced families the profiler measures and the f32 parity
+  checks: products on the f32 CUDA cores, so f32 inputs are never rounded
+  to TF32 (which would miss the reference's f32 tolerance of 2e-4).
+
+Both never write the S x S scores to device memory (online softmax in
+registers), read each K/V tile once per query tile, and skip the key tiles
+that the causal mask or the window hides entirely.
 
 On a CPU tensor ``flash_attention`` computes the plain version; on a CUDA
 tensor it launches the kernel or raises.
@@ -54,6 +66,9 @@ def _check(q, k, v, window):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if q.device.type == "cuda" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary (the kernel "
+                         "copies 16-byte pieces)")
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be >= 1")
 
@@ -93,7 +108,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) with KV | H.  Returns
     (B, S, H, hd) in q's dtype.  Causal masking assumes queries and keys are
-    position-aligned; ``window`` keeps keys with ``k_pos > q_pos - window``."""
+    position-aligned; ``window`` keeps keys with ``k_pos > q_pos - window``.
+
+    A CUDA tensor launches the tensor-core kernel for bf16 and the
+    CUDA-core kernel for f32 (see the module's docstring), or raises."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)

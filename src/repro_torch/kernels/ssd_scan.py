@@ -9,16 +9,31 @@ P 64, one group of N 128, chunk 256, bf16) the scan must read x, dt, B and
 C and write y and the f32 final state, about 98 MB, 29 us at 3.35 TB/s;
 the least arithmetic (C.B^T once per batch, chunk and group, the masked
 lower triangle of the intra-chunk product, the inter-chunk and state
-products per head) is about 16 GFLOP, 16 us at 989 TFLOP/s.  This kernel
-does all its products in f32 on the CUDA cores (67 TFLOP/s), as the TPU
-kernel does them in f32, and recomputes C.B^T for every head of a group,
-so it is held by its own arithmetic far above either bound.  What the
-design does about it: one block owns one (batch, head) and walks the
-chunks in order with the (P, N) f32 state in shared memory, so the state
-never leaves the SM between chunks and every input is read from device
-memory once; the chunk's rows are cut into 64-row tiles that visit only
-the lower triangle of the decay mask.  Computing C.B^T once per group and
-tensor-core products are the next steps.
+products per head) is about 16 GFLOP, 16 us at 989 TFLOP/s.
+
+The kernel is chosen by dtype, and each dtype has exactly one:
+
+* bf16, the serving path: the plain version's passes, each parallel over
+  chunks, with every product on the tensor cores (``mma.sync`` m16n8k16):
+  C.B^T once per (batch, chunk, group) into an f32 scratch; each chunk's
+  state contribution per head; the state passed from chunk to chunk; each
+  chunk's output per 64-row tile.  Four device kernels a call, every block
+  small enough that two or more share an SM.  x, B and C enter the
+  products exactly; the f32 operands (the decayed scores, the scaled B, the
+  carried state) enter as three bf16 terms (hi + mid + lo), since one
+  rounding to bf16 misses the tolerances and two terms round y to another
+  bf16 value than the plain version's about ten times as often
+  (``tests/test_torch_kernels.py`` holds that plan on the CPU,
+  ``chip_smoke.py`` and ``tests/test_torch_gpu.py`` on the card).  The
+  wrapper allocates one f32 scratch buffer for the passes.
+* f32, the reduced families the profiler measures and the f32 parity
+  checks: one block a (batch, head) walks the chunks in order with the
+  (P, N) f32 state in shared memory, products on the f32 CUDA cores, as
+  the TPU kernel computes them in f32.
+
+Both sum every decay exponent over its own segment and never compute the
+upper triangle of the decay mask.  ``ssd_scan.launches`` counts calls of
+the wrapper, not the device kernels inside one call.
 
 On a CPU tensor ``ssd_scan`` computes the plain version; on a CUDA tensor
 it launches the kernel or raises.
@@ -74,6 +89,9 @@ def _check(x, dt, a_neg, b_mat, c_mat, chunk, init_state):
         raise ValueError("x, dt, a_neg, B, C and init_state must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("x, dt, a_neg, B, C and init_state must be contiguous")
+    if x.device.type == "cuda" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("x, dt, a_neg, B, C and init_state must start on a 16-byte "
+                         "boundary (the kernels copy 16-byte pieces)")
 
 
 def segsum(a):
@@ -156,7 +174,7 @@ def ssd_scan_plain(x, dt, a_neg, b_mat, c_mat, chunk: int = 256, init_state=None
 def _function():
     lib = _build.load("ssd_scan")
     fn = lib.repro_ssd_scan
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -164,7 +182,9 @@ def _function():
 def ssd_scan(x, dt, a_neg, b_mat, c_mat, *, chunk: int = 256, init_state=None):
     """x: (B, S, H, P) f32 or bf16; dt: (B, S, H) f32; a_neg: (H,) f32;
     b_mat, c_mat: (B, S, G, N) in x's dtype; init_state: (B, H, P, N) f32
-    or None.  S need not be a multiple of ``chunk``.
+    or None.  S need not be a multiple of ``chunk``.  A CUDA tensor runs the
+    tensor-core passes for bf16 and the CUDA-core kernel for f32 (see the
+    module's docstring), or raises.
 
     Returns (y (B, S, H, P) in x's dtype, final_state (B, H, P, N) f32)."""
     _check(x, dt, a_neg, b_mat, c_mat, chunk, init_state)
@@ -178,11 +198,18 @@ def ssd_scan(x, dt, a_neg, b_mat, c_mat, *, chunk: int = 256, init_state=None):
     y = torch.empty_like(x)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     s0 = init_state.data_ptr() if init_state is not None else None
+    bf16 = x.dtype == torch.bfloat16
+    ptrs = [None] * 3
+    if bf16:   # one f32 scratch: C.B^T per group, the chunk states, their decay exponents
+        nc = -(-s // chunk)
+        sizes = (b * nc * g * chunk * chunk, b * nc * h * p * n, b * nc * h)
+        scratch = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+        ptrs = [scratch.data_ptr() + 4 * sum(sizes[:i]) for i in range(3)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(), b_mat.data_ptr(),
-                 c_mat.data_ptr(), s0, y.data_ptr(), final.data_ptr(), b, s, h, g, p, n,
-                 chunk, int(x.dtype == torch.bfloat16), stream)
+                 c_mat.data_ptr(), s0, y.data_ptr(), final.data_ptr(), *ptrs, b, s, h, g,
+                 p, n, chunk, int(bf16), stream)
     ssd_scan.launches += 1
     _build.check(lib, err, "ssd_scan")
     return y, final

@@ -104,6 +104,26 @@ def test_decode_kernel_matches_plain(b, L, h, kv, hd, lengths, dtype):
     _close(got, K2.decode_attention_plain(q, k, v, lens), dtype)
 
 
+# bf16 edge cases of the tensor-core kernel's 64-row tiles: S around the
+# tile edges, hd 96 and 128, GQA groups 1 and 7, a window of 64 that
+# crosses tile edges
+FLASH_EDGE = [(s, hd, h, kv, None) for s in (1, 8, 15, 17, 63, 65, 127, 129)
+              for hd, h, kv in ((96, 4, 4), (128, 14, 2))]
+FLASH_EDGE += [(s, hd, h, kv, 64) for s in (65, 129, 200)
+               for hd, h, kv in ((96, 4, 4), (128, 14, 2))]
+
+
+@pytest.mark.parametrize("s,hd,h,kv,window", FLASH_EDGE)
+def test_flash_bf16_tile_edges_match_plain(s, hd, h, kv, window):
+    _need_cuda()
+    dtype = torch.bfloat16
+    q = _randn(20, (2, s, h, hd), dtype)
+    k, v = _randn(21, (2, s, kv, hd), dtype), _randn(22, (2, s, kv, hd), dtype)
+    got = K1.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    _close(got, K1.flash_attention_plain(q, k, v, window=window), dtype)
+
+
 def test_wrappers_refuse_before_launching():
     _need_cuda()
     q = torch.zeros((1, 8, 4, 48), device="cuda")
@@ -211,6 +231,43 @@ def test_ssd_kernel_matches_plain(b, s, h, p, g, n, chunk, dtype):
     _close_ssd(final, f_want, torch.float32)
 
 
+def _ssd_edge_cases():
+    """bf16 cases of the tensor-core passes: S in {1, 15, 255, 257, 1000}
+    at every chunk size, cycling through every (P, N) the wrapper accepts
+    and G in {1, 2}."""
+    pn = [(p, n) for p in K3.HEAD_DIMS for n in K3.STATE_DIMS]
+    cases = []
+    for chunk in K3.CHUNKS:
+        for s in (1, 15, 255, 257, 1000):
+            p, n = pn[len(cases) % len(pn)]
+            cases.append((s, chunk, p, n, 1 + len(cases) % 2))
+    return cases
+
+
+@pytest.mark.parametrize("s,chunk,p,n,g", _ssd_edge_cases())
+def test_ssd_bf16_edges_match_plain(s, chunk, p, n, g):
+    _need_cuda()
+    args = _ssd_inputs(13, 2, s, 4, p, g, n, torch.bfloat16)
+    y, final = K3.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    y_want, f_want = K3.ssd_scan_plain(*args, chunk)
+    _close_ssd(y, y_want, torch.bfloat16)
+    _close_ssd(final, f_want, torch.float32)
+
+
+@pytest.mark.parametrize("b,s,g", [(1, 1024, 1), (2, 1000, 1), (2, 600, 2)])
+def test_ssd_bf16_y_rounds_like_the_plain_version(b, s, g):
+    """At mamba2-2.7b's widths the bf16 kernel's y rounds to another bf16
+    value than the f32 plain version's at no more than 2e-4 of the outputs:
+    each f32 operand enters as three bf16 terms (5e-5 to 8e-5 on an H100;
+    two terms, which still hold the 2e-2 tolerance, give 6e-4)."""
+    _need_cuda()
+    args = _ssd_inputs(16, b, s, 80, 64, g, 128, torch.bfloat16)
+    y, _ = K3.ssd_scan(*args, chunk=256)
+    y_want, _ = K3.ssd_scan_plain(*args, 256)
+    assert (y != y_want).float().mean().item() <= 2e-4
+
+
 @pytest.mark.parametrize("chunk", [32, 256])
 def test_ssd_kernel_init_state_continuation(chunk):
     """Two halves with the first half's final state carried == one pass."""
@@ -228,6 +285,25 @@ def test_ssd_kernel_init_state_continuation(chunk):
     y_want, f_want = K3.ssd_scan_plain(x[:, m:], dt[:, m:], a_neg, bm[:, m:], cm[:, m:],
                                        chunk, init_state=f1)
     _close_ssd(y2, y_want, torch.float32)
+    _close_ssd(f2, f_want, torch.float32)
+
+
+def test_ssd_bf16_state_carried_across_halves():
+    """bf16 at mamba2-2.7b's widths: S 1000 in two halves of 500 (neither a
+    whole number of chunks), the first half's f32 state carried."""
+    _need_cuda()
+    x, dt, a_neg, bm, cm = _ssd_inputs(14, 2, 1000, 80, 64, 1, 128, torch.bfloat16)
+    y, final = K3.ssd_scan(x, dt, a_neg, bm, cm, chunk=256)
+    halves = [[t[:, sl].contiguous() for t in (x, dt)] + [a_neg]
+              + [t[:, sl].contiguous() for t in (bm, cm)]
+              for sl in (slice(0, 500), slice(500, None))]
+    y1, f1 = K3.ssd_scan(*halves[0], chunk=256)
+    y2, f2 = K3.ssd_scan(*halves[1], chunk=256, init_state=f1)
+    torch.cuda.synchronize()
+    _close_ssd(torch.cat([y1, y2], dim=1), y, torch.bfloat16)
+    _close_ssd(f2, final, torch.float32)
+    y_want, f_want = K3.ssd_scan_plain(*halves[1], 256, init_state=f1)
+    _close_ssd(y2, y_want, torch.bfloat16)
     _close_ssd(f2, f_want, torch.float32)
 
 

@@ -328,3 +328,103 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(bad):
         init = torch.zeros((b, h, p, n), dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         ops.ssd_scan(x, dt, a_neg, bm, cm, chunk=chunk, init_state=init)
+
+
+# --- the rounding plan of the bf16 SSD kernel (csrc/ssd_scan.cu) -----------
+def _split3(t):
+    """An f32 operand as the kernel feeds it to bf16 tensor-core products:
+    hi = bf16(t), mid = bf16(t - hi), lo = bf16(t - hi - mid), the three
+    products summed in f32."""
+    hi = t.to(torch.bfloat16).float()
+    mid = (t - hi).to(torch.bfloat16).float()
+    return hi + mid + (t - hi - mid).to(torch.bfloat16).float()
+
+
+def _hi_lo(t):
+    """Two bf16 terms: hi = bf16(t), lo = bf16(t - hi)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
+def _bf16_once(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _f32(t):
+    return t
+
+
+def _ssd_kernel_roundings(x, dt, a_neg, bm, cm, chunk, w=_split3, scaled_b=_split3,
+                          state=_split3):
+    """The bf16 kernel's passes in the plain algebra, with its operand
+    roundings: the bf16 inputs x, B, C enter exactly; the decayed scores
+    W = CB * exp(seg(j, i)) * dt_j, the scaled B of the chunk states and the
+    carried state pass through ``w``, ``scaled_b`` and ``state``.  One group,
+    S a multiple of ``chunk``."""
+    b, s, h, p = x.shape
+    nc = s // chunk
+    xf = x.float().reshape(b, nc, chunk, h, p)
+    bf = bm.float().reshape(b, nc, chunk, bm.shape[-1])             # G = 1
+    cf = cm.float().reshape(b, nc, chunk, cm.shape[-1])
+    dtc = dt.reshape(b, nc, chunk, h).movedim(-1, 2)                # (b, nc, h, l)
+    seg = tssd.segsum(dtc * a_neg[None, None, :, None])             # (b, nc, h, l, l)
+    decay = torch.exp(seg)
+    cb = torch.einsum("bcin,bcjn->bcij", cf, bf)[:, :, None]       # once per group
+    wts = w(cb * decay * dtc[..., None, :])
+    y = torch.einsum("bchij,bcjhp->bcihp", wts, xf)
+    bs = scaled_b(bf[:, :, None] * (dtc * decay[..., -1, :])[..., None])   # (b, nc, h, l, n)
+    ds = torch.einsum("bcjhp,bchjn->bchpn", xf, bs)
+    cum = torch.exp(torch.cumsum(dtc * a_neg[None, None, :, None], dim=-1))
+    s_in = torch.zeros_like(ds[:, 0])
+    for c in range(nc):
+        y[:, c] += torch.einsum("bin,bhpn->bihp", cf[:, c], state(s_in)) \
+            * cum[:, c].movedim(-1, 1)[..., None]
+        s_in = s_in * cum[:, c, :, -1, None, None] + ds[:, c]
+    return y.reshape(b, s, h, p).to(x.dtype), s_in
+
+
+def _rounding_plan_inputs():
+    """chip_smoke.py's SSD inputs at a reduced size: x, B, C standard normal
+    in bf16, dt = softplus(normal), a_neg = -linspace(1, 16, H)."""
+    b, s, h, p, n = 1, 512, 16, 64, 128
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(np.float32))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32)))
+    bm = torch.from_numpy(rng.standard_normal((b, s, 1, n)).astype(np.float32))
+    cm = torch.from_numpy(rng.standard_normal((b, s, 1, n)).astype(np.float32))
+    return (x.bfloat16(), dt, -torch.linspace(1.0, 16.0, h), bm.bfloat16(), cm.bfloat16())
+
+
+def test_ssd_kernel_rounding_plan_holds_the_tolerances():
+    """Three bf16 terms for every f32 operand keep the bf16 kernel within
+    chip_smoke.py's tolerances of the plain version: y 2e-2, the f32 state
+    atol 5e-4 / rtol 5e-3."""
+    args = _rounding_plan_inputs()
+    y_want, f_want = tssd.ssd_scan_plain(*args, 256)
+    y, f = _ssd_kernel_roundings(*args, 256)
+    np.testing.assert_allclose(_np(y), _np(y_want), **SSD_TOL["bfloat16"])
+    np.testing.assert_allclose(_np(f), _np(f_want), **SSD_TOL["float32"])
+
+
+def test_ssd_rounding_the_scores_once_misses_the_y_tolerance():
+    """The same passes with W rounded to bf16 once: y leaves its 2e-2
+    tolerance, so a plan that drops the lower terms cannot pass unseen."""
+    args = _rounding_plan_inputs()
+    y_want, _ = tssd.ssd_scan_plain(*args, 256)
+    y, _ = _ssd_kernel_roundings(*args, 256, w=_bf16_once)
+    assert not np.allclose(_np(y), _np(y_want), **SSD_TOL["bfloat16"])
+
+
+def test_ssd_three_terms_round_y_like_f32_operands():
+    """y's bf16 rounding differs from the plain version's (one ulp) about as
+    rarely with three bf16 terms as with exact f32 operands; with two terms
+    (hi + lo, which still holds the tolerances) at least ten times as often,
+    enough to change greedy tokens of a 64-layer bf16 model."""
+    args = _rounding_plan_inputs()
+    y_want, _ = tssd.ssd_scan_plain(*args, 256)
+    flips = {name: int((_ssd_kernel_roundings(*args, 256, w=fn, scaled_b=fn, state=fn)[0]
+                        != y_want).sum())
+             for name, fn in (("f32", _f32), ("three", _split3), ("two", _hi_lo))}
+    assert flips["three"] <= 2 * flips["f32"] + 2, flips
+    assert flips["two"] >= 10 * max(flips["f32"], 1), flips
