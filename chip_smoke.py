@@ -10,17 +10,22 @@ Phases, each of which fails the script if it fails:
    once, and print each kernel's registers and spills (ptxas), each
    library's tensor-core instructions (HMMA / HGMMA in cuobjdump -sass;
    K1's and K3's must be nonzero), and each kernel's dynamic shared memory
-   and resident blocks per SM (the bf16 paths of K1 and K3 must reach two);
+   and resident blocks per SM (the bf16 paths of K1 and K3 must reach two;
+   K2's splits, ring stages and blocks at the decode shapes, which must
+   fit in one wave);
 3. hold each kernel against its plain PyTorch version on the card at the
-   serving paths' shapes and at the edges of the bf16 kernels' tiles
-   (attention: bf16 within 2e-2, f32 within 2e-4; the SSD scan: y within
-   2e-2 in bf16, the state and f32 y within atol 5e-4 / rtol 5e-3, and at
-   mamba2-2.7b's widths at most 2e-4 of the bf16 y rounded to another bf16
-   value than the plain version's), then
+   serving paths' shapes and at the edges of the bf16 kernels' tiles and
+   of K2's splits (attention: bf16 within 2e-2, f32 within 2e-4; the SSD
+   scan: y within 2e-2 in bf16, the state and f32 y within atol 5e-4 /
+   rtol 5e-3, and at mamba2-2.7b's widths at most 2e-4 of the bf16 y
+   rounded to another bf16 value than the plain version's), and K2 called
+   again and again at alternating shapes (its arrival counters must be
+   zero after), then
    time the bf16 kernel, the f32 kernel, the plain version and, for
    attention, F.scaled_dot_product_attention (a yardstick the port never
-   calls) with CUDA events, beside the card's bound, and list the device
-   kernels one call launches;
+   calls) with CUDA events, beside the card's bound, list the device
+   kernels one call launches with their device time (torch.profiler), and
+   time K2 at other split counts than its wrapper's;
 4. serve the vlm-classify pipeline at full width -- phi-3-vision-4.2b at its
    published config, then yi-34b at full width with its depth cut to 12 of
    60 layers -- with random weights from a seed, counting kernel launches,
@@ -88,6 +93,12 @@ BATCH, PROMPT, GEN = 4, 256, 8
 YI_LAYERS = 12
 MAMBA_PROMPT = 1024
 DEV = "cuda"
+# K2 at the first decode step of each stage (cache_len = prompt, so lengths
+# = prompt + 1 of capacity prompt + GEN), and a full yi-34b cache of 520
+# slots: (label, H, KV, hd, L, lengths)
+DECODE_SHAPES = (("phi-3 decode", 32, 32, 96, PROMPT + GEN, PROMPT + 1),
+                 ("yi-34b decode", 56, 8, 128, 2 * GEN, GEN + 1),
+                 ("yi-34b L=520", 56, 8, 128, 520, 520))
 
 
 def log(msg: str) -> None:
@@ -184,15 +195,19 @@ def phase_device():
 
 def _kernel_label(mangled_line):
     """'flash_tc_kernel hd96' for a ptxas line naming flash_tc_kernel<96>,
-    'ssd_out_kernel full' for ssd_out_kernel<true>."""
+    'ssd_out_kernel full' for ssd_out_kernel<true>, 'decode_split_kernel
+    bf16/hd96/g1' for decode_split_kernel<bf16, 96, 1>."""
     m = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)(?:I((?:f|13__nv_bfloat16|Li\d+E|Lb[01]E)+)E)?",
                   mangled_line)
     if not m:
         return None
-    parts = []
+    parts, ints = [], 0
     for tok in re.finditer(r"f|13__nv_bfloat16|Li(\d+)E|Lb[01]E", m.group(2) or ""):
-        parts.append({"f": "f32", "13__nv_bfloat16": "bf16", "Lb1E": "full", "Lb0E": "any"}
-                     .get(tok.group(0)) or f"hd{tok.group(1)}")
+        label = {"f": "f32", "13__nv_bfloat16": "bf16", "Lb1E": "full", "Lb0E": "any"}.get(
+            tok.group(0))
+        if label is None:   # integers: the head dim, then (K2) the heads a block
+            label, ints = f"{('hd', 'g')[min(ints, 1)]}{tok.group(1)}", ints + 1
+        parts.append(label)
     return m.group(1) + (" " + "/".join(parts) if parts else "")
 
 
@@ -238,10 +253,25 @@ def phase_build():
             log(f"flash_attention hd{hd} {label}: "
                 f"{k1.repro_flash_attention_smem_bytes(hd, bf)} B shared a block, "
                 f"{occ[('flash_attention', hd, bf)]} blocks per SM")
-    k2 = _build.load("decode_attention").repro_decode_attention_smem_bytes
-    k2.argtypes, k2.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    log(f"decode_attention: phi-3 (group 1, hd96) {k2(1, 96)} B shared a block, "
-        f"yi-34b (group 7, hd128) {k2(7, 128)} B")
+    k2 = _build.load("decode_attention")
+    for fn in (k2.repro_decode_attention_stages, k2.repro_decode_attention_smem_bytes,
+               k2.repro_decode_attention_blocks_per_sm):
+        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    sms, waves = torch.cuda.get_device_properties(0).multi_processor_count, {}
+    for label, h, kv, hd, L, _ in DECODE_SHAPES:
+        splits, chunk = K2.split_plan(BATCH, kv, L)
+        for bf in (1, 0):
+            g = h // kv
+            occ[("decode_attention", label, bf)] = k2.repro_decode_attention_blocks_per_sm(
+                g, hd, bf, chunk)
+            waves[(label, bf)] = BATCH * kv * splits / (occ[("decode_attention", label, bf)]
+                                                       * sms)
+            path = "tensor cores" if bf else "CUDA cores"
+            log(f"decode_attention {label} (group {g}, hd{hd}) {('f32', 'bf16')[bf]} {path}: "
+                f"{splits} splits of {chunk} slots, {BATCH * kv * splits} blocks, "
+                f"{k2.repro_decode_attention_stages(g, hd, bf, chunk)} ring stages, "
+                f"{k2.repro_decode_attention_smem_bytes(g, hd, bf, chunk)} B shared a block, "
+                f"{occ[('decode_attention', label, bf)]} blocks per SM")
     k3 = _build.load("ssd_scan")
     k3.repro_ssd_scan_kernel_name.argtypes = [ctypes.c_int]
     k3.repro_ssd_scan_kernel_name.restype = ctypes.c_char_p
@@ -256,6 +286,8 @@ def phase_build():
     assert min(occ[("flash_attention", hd, 1)] for hd in (96, 128)) >= 2, occ
     assert min(occ[("ssd_scan", i)]
                for i in range(1, k3.repro_ssd_scan_kernel_count())) >= 2, occ
+    # K2: every block of a decode step resident at once (one wave)
+    assert max(waves.values()) <= 1, waves
     return hmma
 
 
@@ -385,6 +417,23 @@ def phase_parity():
                              (f"phi-3 L={L}", 32, 32, 96, L, lengths, dt)]
     decode_cases += [(f"reduced hd={hd} L=20", h, kv, hd, 20, [0, 20, 5, 17], f32)
                      for h, kv, hd in ((8, 2, 32), (4, 4, 64), (4, 4, 96))]
+    # the split cache: at B 7 and L 200 the wrapper cuts 64-slot splits, so
+    # these lengths are 0, 1, a split edge -1, +0, +1, L and beyond L
+    decode_cases += [(f"split edges group {h // kv} hd={hd} L=200", h, kv, hd, 200,
+                      [0, 1, 63, 64, 65, 200, 300], dt)
+                     for h, kv, hd in ((2, 2, 32), (4, 4, 96), (14, 2, 128), (16, 2, 64),
+                                       (8, 1, 32))
+                     for dt in (bf, f32)]
+    # L of 1, 64, 65 and 4096 (B 1: 4, 16 or 64 splits); groups 12 and 20 run
+    # in two row chunks (of the CUDA-core and the tensor-core kernel)
+    decode_cases += [(f"group {h // kv} hd={hd} L={L}", h, kv, hd, L, lengths, dt)
+                     for L, h, kv, hd, lengths in (
+                         (1, 4, 4, 64, [0, 1]), (1, 14, 2, 128, [1, 5]),
+                         (64, 8, 1, 96, [63, 64, 0]), (65, 7, 1, 128, [64, 65, 1]),
+                         (4096, 32, 32, 96, [4000]), (4096, 32, 32, 96, [257]),
+                         (4096, 56, 8, 128, [4096]), (4096, 8, 1, 64, [0]),
+                         (300, 24, 2, 128, [299, 65]), (100, 20, 1, 64, [50, 0]))
+                     for dt in (bf, f32)]
     for label, h, kv, hd, L, lengths, dt in decode_cases:
         b = len(lengths)
         q = _randn(gen, (b, h, hd), dt)
@@ -400,8 +449,35 @@ def phase_parity():
         assert ok, label
         rows["decode_attention"].append({"case": f"{label} {str(dt)[6:]}",
                                          "max_abs_err": err, "tol": TOL[dt]})
+    rows["decode_attention"].append(_k2_repeated_calls(gen))
     rows["ssd_scan"] = phase_parity_ssd(gen)
     return rows
+
+
+def _k2_repeated_calls(gen):
+    """K2's arrival counters reset: the phi-3 decode shape five times with
+    new lengths, then the yi-34b and a reduced f32 shape in turn, each
+    output against the plain version, every counter zero at the end."""
+    shapes = [(32, 32, 96, PROMPT + GEN, torch.bfloat16), (56, 8, 128, 520, torch.bfloat16),
+              (8, 2, 64, 300, torch.float32)]
+    calls = [shapes[0]] * 5 + [shapes[1], shapes[2]] * 3 + [shapes[1], shapes[0]]
+    err = 0.0
+    for i, (h, kv, hd, L, dt) in enumerate(calls):
+        q = _randn(gen, (BATCH, h, hd), dt)
+        k, v = _randn(gen, (BATCH, L, kv, hd), dt), _randn(gen, (BATCH, L, kv, hd), dt)
+        lens = torch.tensor([(37 * i + 61 * j) % (L + 20) for j in range(BATCH)],
+                            dtype=torch.int32, device=DEV)
+        got, want = K2.decode_attention(q, k, v, lens).float(), K2.decode_attention_plain(
+            q, k, v, lens).float()
+        e = (got - want).abs().max().item()
+        assert torch.allclose(got, want, atol=TOL[dt], rtol=TOL[dt]), (i, e)
+        err = max(err, e / TOL[dt])
+    torch.cuda.synchronize()
+    busy = sum(int(c.abs().sum()) for c in K2._counters.values())
+    log(f"K2 repeated and alternating calls: {len(calls)} calls at 3 shapes, max abs err "
+        f"{err:.3e} of the tolerance, arrival counters nonzero after: {busy}")
+    assert busy == 0
+    return {"case": "repeated and alternating calls", "max_abs_err_over_tol": err}
 
 
 def phase_timing():
@@ -433,11 +509,7 @@ def phase_timing():
                                               f32_ms=ms32)
         _log_device_kernels(f"K1 {label} bf16", K1.flash_attention, q, k, v)
         _log_device_kernels(f"SDPA {label} bf16", sdpa_prefill, q, k, v)
-    # decode: the first decode step of each stage (cache_len = prompt, so
-    # lengths = prompt + 1 of capacity prompt + GEN)
-    for label, h, kv, hd, L, n in (("phi-3 decode", 32, 32, 96, PROMPT + GEN, PROMPT + 1),
-                                   ("yi-34b decode", 56, 8, 128, 2 * GEN, GEN + 1),
-                                   ("yi-34b L=520", 56, 8, 128, 520, 520)):
+    for label, h, kv, hd, L, n in DECODE_SHAPES:
         q = _randn(gen, (BATCH, h, hd), bf)
         k, v = _randn(gen, (BATCH, L, kv, hd), bf), _randn(gen, (BATCH, L, kv, hd), bf)
         lens = torch.full((BATCH,), n, dtype=torch.int32, device=DEV)
@@ -450,11 +522,21 @@ def phase_timing():
         plain = cuda_ms(K2.decode_attention_plain, sets)
         lib = cuda_ms(sdpa_decode, sets)
         bound, by = decode_bound(h, kv, hd, L, [n] * BATCH, bf)
+        args32 = tuple(t.float() if t.is_floating_point() else t for t in (q, k, v, lens))
+        ms32 = cuda_ms(K2.decode_attention, copies(args32))
+        bound32, by32 = decode_bound(h, kv, hd, L, [n] * BATCH, torch.float32)
         log(f"time K2 {label} B={BATCH} L={L} lengths={n} H={h} KV={kv} hd={hd} bf16: "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-            f"bound {bound:.4f} ms ({by})")
+            f"bound {bound:.4f} ms ({by}); f32 kernel {ms32:.4f} ms, bound {bound32:.4f} ms "
+            f"({by32})")
+        dev = _log_device_kernels(f"K2 {label} bf16", K2.decode_attention, q, k, v, lens)
+        dev32 = _log_device_kernels(f"K2 {label} f32", K2.decode_attention, *args32)
+        dev_lib = _log_device_kernels(f"SDPA {label} bf16", sdpa_decode, q, k, v, lens)
         out[("decode_attention", label)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                               bound_ms=bound, bound_by=by, max_abs_err=err)
+                                               bound_ms=bound, bound_by=by, max_abs_err=err,
+                                               f32_ms=ms32, device_ms=dev, f32_device_ms=dev32,
+                                               library_device_ms=dev_lib)
+        _k2_split_sweep(label, q, k, v, lens)
     # SSD scan: the mamba2-2.7b prefill of the serve phase, and the 4-token
     # prompt nlp-chain hands its third stage
     log("time K3: no single PyTorch call computes the SSD scan, so it has no "
@@ -482,19 +564,67 @@ def phase_timing():
     return out
 
 
-def _log_device_kernels(label, fn, *args):
+def _k2_split_sweep(label, q, k, v, lens, reps=20):
+    """K2's device time a launch with the cache cut into other numbers of
+    splits than ``split_plan``'s, through the library's C entry (the
+    wrapper takes no other): the evidence for the split rule.  Each output
+    is held against the plain version first."""
+    from torch.profiler import ProfilerActivity, profile
+    lib, fn = K2._function()
+    b, h, hd = q.shape
+    L, kv = k.shape[1], k.shape[2]
+    tiles = -(-L // K2.SPLIT_SLOTS)
+    want = K2.decode_attention_plain(q, k, v, lens).float()
+    times = {}
+    for ask in (1, 2, 3, 5, 9, tiles):
+        per = -(-tiles // min(ask, tiles))
+        splits = -(-tiles // per)
+        if splits in times:
+            continue
+        ws = torch.empty(b * h * splits * (hd + 2), device=DEV)
+        counters = torch.zeros(b * h, dtype=torch.int32, device=DEV)
+        o = torch.empty_like(q)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), o.data_ptr(),
+                ws.data_ptr(), counters.data_ptr(), b, L, h, kv, hd,
+                int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5, splits, per * K2.SPLIT_SLOTS,
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, fn(*args), "decode_attention")
+        torch.cuda.synchronize()
+        assert torch.allclose(o.float(), want, atol=TOL[q.dtype], rtol=TOL[q.dtype]), splits
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        times[splits] = sum(e.self_device_time_total for e in prof.key_averages()
+                            if e.device_type.name == "CUDA") / 1e3 / reps
+    log(f"K2 split sweep {label} {str(q.dtype)[6:]} (device ms a launch; split_plan "
+        f"{K2.split_plan(b, kv, L)[0]}): "
+        + ", ".join(f"{s} splits {t:.4f}" for s, t in sorted(times.items())))
+
+
+def _log_device_kernels(label, fn, *args, reps=5):
     """The device kernels one call of fn launches, with their device time
-    (torch.profiler); the launch counters count calls, not these."""
+    (torch.profiler over ``reps`` calls, per call); returns their sum in ms.
+    The launch counters count calls, not these.  A window in which the
+    profiler recorded no device kernel at all is taken again."""
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    log(f"device kernels per call, {label}: {sum(e.count for e in kernels)} ("
-        + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.4f} ms"
-                    for e in kernels) + ")")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if kernels:
+            break
+    assert kernels, f"{label}: the profiler recorded no device kernel"
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    each = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / reps:.4f} ms"
+                     for e in kernels)
+    log(f"device kernels per call, {label}: {sum(e.count for e in kernels) / reps:g}, "
+        f"{total:.4f} ms ({each})")
+    return total
 
 
 def _full_width_stages():
@@ -633,7 +763,7 @@ def phase_trace(engine, prompt, wall_s):
         f"{wall_s * 1e3:.3f} ms; busy share {busy_ms / (wall_s * 1e3):.4f}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
-    for port in ("flash_kernel", "flash_tc_kernel", "decode_kernel", "ssd_"):
+    for port in ("flash_kernel", "flash_tc_kernel", "decode_split", "ssd_"):
         mine = [e for e in kernels if f"::{port}" in e.key]
         if mine:
             ms = sum(e.self_device_time_total for e in mine) / 1e3
@@ -848,6 +978,7 @@ def main() -> int:
                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "shape": shape, "f32_ms": t.get("f32_ms"),
+                        "device_ms": t.get("device_ms"),
                         "hmma_in_library": hmma[name][0], "parity": parity[name]})
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(smi)

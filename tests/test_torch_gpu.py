@@ -89,6 +89,22 @@ DECODE = [
     (4, 520, 56, 8, 128, [0, 520, 17, 300], torch.bfloat16),
     (4, 520, 32, 32, 96, [1, 64, 65, 519], torch.float32),
 ]
+# the split cache: at B 7 and L 200 the wrapper's plan cuts 64-slot splits,
+# so the lengths are 0, 1, a split edge -1, +0, +1, L and beyond L
+SPLIT_EDGES = [0, 1, 63, 64, 65, 200, 300]
+DECODE += [(7, 200, h, kv, hd, SPLIT_EDGES, dt)
+           for h, kv, hd in ((2, 2, 32), (4, 4, 96), (14, 2, 128), (16, 2, 64), (8, 1, 32))
+           for dt in (torch.float32, torch.bfloat16)]
+# L of 1, 64, 65 and 4096 (B 1: 4, 16 or 64 splits), GQA groups 1, 7, 8, 12
+# (two row chunks of the CUDA-core kernel) and 20 (two of the tensor cores')
+DECODE += [(b, L, h, kv, hd, lengths, dt)
+           for b, L, h, kv, hd, lengths in (
+               (2, 1, 4, 4, 64, [0, 1]), (2, 1, 14, 2, 128, [1, 5]),
+               (3, 64, 8, 1, 96, [63, 64, 0]), (3, 65, 7, 1, 128, [64, 65, 1]),
+               (1, 4096, 32, 32, 96, [4000]), (1, 4096, 32, 32, 96, [257]),
+               (1, 4096, 56, 8, 128, [4096]), (1, 4096, 8, 1, 64, [0]),
+               (2, 300, 24, 2, 128, [299, 65]), (2, 100, 20, 1, 64, [50, 0]))
+           for dt in (torch.float32, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("b,L,h,kv,hd,lengths,dtype", DECODE)
@@ -102,6 +118,25 @@ def test_decode_kernel_matches_plain(b, L, h, kv, hd, lengths, dtype):
     torch.cuda.synchronize()
     assert K2.decode_attention.launches == n + 1
     _close(got, K2.decode_attention_plain(q, k, v, lens), dtype)
+
+
+def test_decode_repeated_and_alternating_calls_match_plain():
+    """The arrival counters reset: the same shape five times with new
+    lengths each time, then two shapes in turn, every output against the
+    plain version, and every counter zero at the end."""
+    _need_cuda()
+    shapes = [(4, 264, 32, 32, 96, torch.bfloat16), (4, 520, 56, 8, 128, torch.bfloat16),
+              (2, 300, 8, 2, 64, torch.float32)]
+    calls = [shapes[0]] * 5 + [shapes[1], shapes[2]] * 3 + [shapes[1], shapes[0]]
+    for i, (b, L, h, kv, hd, dtype) in enumerate(calls):
+        q = _randn(30 + i, (b, h, hd), dtype)
+        k, v = _randn(50 + i, (b, L, kv, hd), dtype), _randn(70 + i, (b, L, kv, hd), dtype)
+        lens = torch.tensor([(37 * i + 61 * j) % (L + 20) for j in range(b)],
+                            dtype=torch.int32, device="cuda")
+        got = K2.decode_attention(q, k, v, lens)
+        _close(got, K2.decode_attention_plain(q, k, v, lens), dtype)
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0 for c in K2._counters.values())
 
 
 # bf16 edge cases of the tensor-core kernel's 64-row tiles: S around the

@@ -181,6 +181,117 @@ def test_decode_ignores_slots_past_length():
     np.testing.assert_allclose(_np(out1), _np(out2), atol=1e-6)
 
 
+# --- the split-cache plan of the decode kernel (csrc/decode_attention.cu) ---
+@pytest.mark.parametrize("b,kv,L", [
+    (4, 32, 264), (4, 8, 16), (4, 8, 520), (1, 8, 4096), (1, 32, 4096),
+    (1, 1, 1), (1, 1, 64), (1, 1, 65), (2, 4, 130), (64, 32, 264), (3, 7, 1000),
+    (1, 1, 32768)])
+def test_split_plan_covers_every_slot_once(b, kv, L):
+    splits, chunk = tdec.split_plan(b, kv, L)
+    assert chunk % tdec.SPLIT_SLOTS == 0 and splits >= 1
+    covered = np.zeros(L, np.int64)
+    for s in range(splits):
+        assert s * chunk < L, "every split starts inside the cache"
+        covered[s * chunk:(s + 1) * chunk] += 1
+    assert (covered == 1).all()
+    assert splits == 1 or b * kv * splits <= tdec.TARGET_BLOCKS
+
+
+def test_split_plan_at_the_serving_shapes():
+    assert tdec.split_plan(4, 32, 264) == (1, 320)   # phi-3 decode: 128 blocks, no split
+    assert tdec.split_plan(4, 8, 16)[0] == 1         # yi-34b decode: one split
+    assert tdec.split_plan(4, 8, 520) == (3, 192)    # a longer yi-34b cache: 96 blocks
+    assert tdec.split_plan(1, 8, 4096) == (16, 256)  # one sequence: 128 blocks
+
+
+def _split_combine(q, k, v, lengths, chunk):
+    """The kernel's arithmetic at the granularity of its splits, in plain
+    PyTorch: split s reads slots [s chunk, (s + 1) chunk) below n =
+    min(lengths[b], L) (n = L when lengths[b] <= 0, every slot then scoring
+    -1e30) and forms (m, l, acc) with p rounded to V's dtype against its own
+    max; a split that starts at or past n has m = -inf, l = 0 and no acc;
+    the combine weighs split s by exp(m_s - max m), skips the empty ones,
+    and divides by l (1 where l == 0)."""
+    b, h, hd = q.shape
+    L, kv = k.shape[1], k.shape[2]
+    group, scale = h // kv, 1.0 / hd ** 0.5
+    out = torch.empty((b, h, hd))
+    for bi in range(b):
+        ln = int(lengths[bi])
+        n = min(ln, L) if ln > 0 else L
+        for hi in range(h):
+            parts = []
+            for s0 in range(0, L, chunk):
+                s1 = min(s0 + chunk, n)
+                if s1 <= s0:
+                    parts.append((-np.inf, 0.0, None))
+                    continue
+                kk, vv = k[bi, s0:s1, hi // group], v[bi, s0:s1, hi // group]
+                sc = (kk.float() @ q[bi, hi].float()) * scale
+                if ln <= 0:
+                    sc = torch.full_like(sc, -1e30)
+                m = sc.max()
+                p = torch.exp(sc - m)
+                parts.append((float(m), p.sum(), p.to(v.dtype).float() @ vv.float()))
+            mx = max(m for m, _, _ in parts)
+            den, acc = 0.0, torch.zeros(hd)
+            for m, l, a in parts:
+                if m == -np.inf:
+                    continue
+                w = np.exp(m - mx)
+                den, acc = den + w * l, acc + w * a
+            out[bi, hi] = acc / (den if den != 0 else 1.0)
+    return out.to(q.dtype)
+
+
+# (L, chunk, h, kv, hd): the wrapper's own plan at L 136 (splits at 64 and
+# 128), and 8-slot splits at L 24 (at 8 and 16); GQA groups 1 and 7
+SPLIT_CASES = [(136, None, 2, 2, 32), (136, None, 7, 1, 64),
+               (24, 8, 2, 2, 96), (24, 8, 7, 1, 32)]
+
+
+@pytest.fixture
+def split_case(request):
+    (L, chunk, h, kv, hd), dtype = request.param
+    chunk = chunk or tdec.split_plan(7, kv, L)[1]
+    # lengths 0, 1, a split edge -1, +0, +1, L and beyond L
+    lengths = [0, 1, chunk - 1, chunk, chunk + 1, L, L + 50]
+    pairs = _decode_inputs(8, len(lengths), L, h, kv, hd, dtype, lengths)
+    return pairs, chunk, dtype
+
+
+SPLIT_PARAMS = [(c, d) for c in SPLIT_CASES for d in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("split_case", SPLIT_PARAMS, indirect=True)
+def test_split_combine_matches_reference_oracle(split_case):
+    pairs, chunk, dtype = split_case
+    (qj, qt), (kj, kt), (vj, vt), (lj, lt) = pairs
+    got = _split_combine(qt, kt, vt, lt, chunk)
+    want = jref.decode_attention_ref(qj, kj, vj, lj)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("split_case", SPLIT_PARAMS, indirect=True)
+def test_split_combine_matches_pallas_interpret(split_case):
+    pairs, chunk, dtype = split_case
+    (qj, qt), (kj, kt), (vj, vt), (lj, lt) = pairs
+    got = _split_combine(qt, kt, vt, lt, chunk)
+    want = jops.decode_attention(qj, kj, vj, lj, block_k=8, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+def test_split_combine_weighs_empty_splits_zero_and_masked_rows_alike():
+    """lengths 1 leaves every split but the first empty (m = -inf): the
+    output is V's first slot.  lengths 0 scores every slot -1e30 in every
+    split: the output is the mean of V, not NaN."""
+    (_, qt), (_, kt), (_, vt), (_, lt) = _decode_inputs(9, 2, 200, 2, 2, 32, "float32",
+                                                        [1, 0])
+    got = _split_combine(qt, kt, vt, lt, 64)
+    np.testing.assert_allclose(_np(got[0]), _np(vt[0, 0]), atol=1e-6)
+    np.testing.assert_allclose(_np(got[1]), _np(vt[1].mean(dim=0)), atol=1e-6)
+
+
 def test_cpu_tensors_launch_no_kernel():
     (_, qt), (_, kt), (_, vt) = _attn_inputs(7, 1, 8, 2, 2, 32, "float32")
     before = (tfa.flash_attention.launches, tdec.decode_attention.launches,
