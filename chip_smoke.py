@@ -14,7 +14,8 @@ Phases, each of which fails the script if it fails:
    K2's splits, ring stages and blocks at the decode shapes, which must
    fit in one wave);
 3. hold each kernel against its plain PyTorch version on the card at the
-   serving paths' shapes and at the edges of the bf16 kernels' tiles and
+   serving paths' shapes (nlp-chain's and jamba's included) and at the
+   edges of the bf16 kernels' tiles and
    of K2's splits (attention: bf16 within 2e-2, f32 within 2e-4; the SSD
    scan: y within 2e-2 in bf16, the state and f32 y within atol 5e-4 /
    rtol 5e-3, and at mamba2-2.7b's widths at most 2e-4 of the bf16 y
@@ -37,7 +38,22 @@ Phases, each of which fails the script if it fails:
    kernel path against its naive SSD path at S 1024 and S 1000 (in bf16:
    both against an exact evaluation of the scan, the kernel path no farther
    from it than the naive path), and profile the reduced mamba2 family and
-   the full-width stage.
+   the full-width stage;
+7. serve nlp-chain at full width -- gemma3-27b with its depth cut to 24 of
+   62 layers (window 1024, a 1280-token prompt, so every local layer's ring
+   wraps), qwen2-moe-a2.7b and mamba2-2.7b at their published configs --
+   counting the launches of all three kernels, trace a batch, split the
+   MoE layers' device time by kernel name, hold gemma3's and qwen2-moe's
+   kernel paths against their naive paths and qwen2-moe's einsum dispatch
+   against its gather dispatch (bf16 greedy tokens on the served weights,
+   qwen2-moe's second run under the first run's MoE routing; f32 logits
+   within 2e-4 at a cut depth, every token routed alike in both runs),
+   time one qwen2-moe MoE layer in each dispatch mode, and profile the
+   reduced nlp-chain families through ``build_pipeline``;
+8. serve jamba-v0.1-52b at full width with its depth cut to one period of
+   8 layers (attention, MoE and Mamba2 with d_state 16), counting launches,
+   and hold its kernel path against its naive path in bf16 (under the naive
+   path's MoE routing) and in f32 (every token routed alike).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -71,7 +87,9 @@ from repro_torch.kernels import flash_attention as K1  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as K3  # noqa: E402
 from repro_torch.launch.serve import build_pipeline  # noqa: E402
+from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as MO  # noqa: E402
 from repro_torch.serving.engine import PipelineEngine, StageServer  # noqa: E402
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}    # tests/test_kernels.py:13-15
@@ -92,13 +110,33 @@ PEAK_BYTES = 3.35e12
 BATCH, PROMPT, GEN = 4, 256, 8
 YI_LAYERS = 12
 MAMBA_PROMPT = 1024
+# nlp-chain: gemma3-27b at full width with 24 of its 62 layers (21.1 GiB of
+# bf16 weights; all 62, 50.3 GiB, do not fit beside qwen2-moe's 26.1 and
+# mamba2's 5.0), four of them global (5, 11, 17, 23); a prompt past its
+# 1024-slot window, so every local layer's ring wraps in prefill and decode
+GEMMA_LAYERS = 24
+NLP_PROMPT = 1280
+# kernel vs naive on qwen2-moe: T = 4 x 256 = 1024 tokens, one routing group
+# of capacity 86 an expert; the f32 checks' depth cuts (one gemma3 period,
+# global layer 5 included)
+QWEN_PROMPT = 256
+GEMMA_F32_LAYERS, QWEN_F32_LAYERS = 6, 4
+# jamba-v0.1-52b at full width, one period of its 32 layers (24.2 GiB):
+# attention at layer 4, MoE at 1, 3, 5 and 7, Mamba2 (d_state 16) elsewhere
+JAMBA_LAYERS = 8
+JAMBA_PROMPT = 256
 DEV = "cuda"
 # K2 at the first decode step of each stage (cache_len = prompt, so lengths
-# = prompt + 1 of capacity prompt + GEN), and a full yi-34b cache of 520
-# slots: (label, H, KV, hd, L, lengths)
+# = prompt + 1 of capacity prompt + GEN), a full yi-34b cache of 520 slots,
+# gemma3's wrapped 1024-slot ring of a local layer and its global cache,
+# qwen2-moe's and jamba's: (label, H, KV, hd, L, lengths)
 DECODE_SHAPES = (("phi-3 decode", 32, 32, 96, PROMPT + GEN, PROMPT + 1),
                  ("yi-34b decode", 56, 8, 128, 2 * GEN, GEN + 1),
-                 ("yi-34b L=520", 56, 8, 128, 520, 520))
+                 ("yi-34b L=520", 56, 8, 128, 520, 520),
+                 ("gemma3 local ring", 32, 16, 128, 1024, 1024),
+                 ("gemma3 global L=1288", 32, 16, 128, NLP_PROMPT + GEN, NLP_PROMPT + 1),
+                 ("qwen2-moe decode", 16, 16, 128, 2 * GEN, GEN + 1),
+                 ("jamba decode", 32, 8, 128, JAMBA_PROMPT + GEN, JAMBA_PROMPT + 1))
 
 
 def log(msg: str) -> None:
@@ -163,10 +201,24 @@ def ssd_bound(b, s, h, p, g, n, chunk, dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def sdpa_prefill(q, k, v):
+def sdpa_prefill(q, k, v, window=None):
+    """The yardstick: causal, or with an explicit causal window mask."""
+    mask = None
+    if window is not None:
+        i = torch.arange(q.shape[1], device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
     return F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-        enable_gqa=q.shape[2] != k.shape[2])
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        is_causal=window is None, enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+
+def sdpa_backend(kernel_names):
+    """Which of SDPA's backends ran, from its device kernels' names."""
+    for part, backend in (("cudnn", "cuDNN"), ("flash", "flash"), ("fmha", "efficient"),
+                          ("efficient", "efficient")):
+        if any(part in n.lower() for n in kernel_names):
+            return backend
+    return "math"
 
 
 def sdpa_decode(q, k, v, lengths):
@@ -334,7 +386,10 @@ def phase_parity_ssd(gen):
     rows = []
     # (label, B, S, H, P, G, N, chunk, dtype)
     cases = [(f"mamba2-2.7b S={s}", BATCH, s, 80, 64, 1, 128, 256, dt)
-             for s in (4, 1000, 1024) for dt in (bf, f32)]
+             for s in (4, GEN, 1000, 1024) for dt in (bf, f32)]
+    # jamba-v0.1-52b's mixer at full width: 128 heads of P 64, N 16
+    cases += [(f"jamba N=16 S={s}", BATCH, s, 128, 64, 1, 16, 256, dt)
+              for s in (JAMBA_PROMPT, 1000) for dt in (bf, f32)]
     cases += [("reduced P=32 N=16 chunk 32 S=100", BATCH, 100, 16, 32, 1, 16, 32, dt)
               for dt in (f32, bf)]
     cases += [("G=2 reduced S=300", 2, 300, 16, 32, 2, 16, 32, f32),
@@ -385,6 +440,16 @@ def phase_parity():
     flash_cases = [(f"yi-34b S={s}", BATCH, s, 56, 8, 128, None, bf) for s in (16, 500, 512)]
     flash_cases += [(f"phi-3 S={s}", BATCH, s, 32, 32, 96, None, bf) for s in (16, 500, 512)]
     flash_cases += [("phi-3 S=500 window 64", BATCH, 500, 32, 32, 96, 64, bf)]
+    # nlp-chain: gemma3's local layers (window 1024, group 2; at S 1100 the
+    # window's edge falls inside a tile), its global layers, qwen2-moe's
+    flash_cases += [(f"gemma3 local S={s} window 1024", BATCH, s, 32, 16, 128, 1024, dt)
+                    for s in (NLP_PROMPT, 1100) for dt in (bf, f32)]
+    flash_cases += [(f"gemma3 global S={NLP_PROMPT}", BATCH, NLP_PROMPT, 32, 16, 128, None, bf)]
+    flash_cases += [(f"qwen2-moe S={s}", BATCH, s, 16, 16, 128, None, dt)
+                    for s in (GEN, QWEN_PROMPT) for dt in (bf, f32)]
+    # jamba's attention layer (group 4, hd 128)
+    flash_cases += [(f"jamba S={JAMBA_PROMPT}", BATCH, JAMBA_PROMPT, 32, 8, 128, None, dt)
+                    for dt in (bf, f32)]
     flash_cases += [(f"reduced hd={hd} S=16", BATCH, 16, h, kv, hd, None, f32)
                     for h, kv, hd in ((8, 2, 32), (4, 4, 64), (4, 4, 96))]
     flash_cases += [("reduced hd=64 S=130 window 64", 2, 130, 4, 2, 64, 64, f32)]
@@ -417,6 +482,18 @@ def phase_parity():
                              (f"phi-3 L={L}", 32, 32, 96, L, lengths, dt)]
     decode_cases += [(f"reduced hd={hd} L=20", h, kv, hd, 20, [0, 20, 5, 17], f32)
                      for h, kv, hd in ((8, 2, 32), (4, 4, 64), (4, 4, 96))]
+    # nlp-chain: gemma3's wrapped local ring (every slot valid), its global
+    # cache over the decode steps, qwen2-moe's
+    decode_cases += [(label, 32, 16, 128, L, lengths, dt)
+                     for label, L, lengths in (
+                         ("gemma3 local ring L=1024", 1024, [1024] * BATCH),
+                         (f"gemma3 global L={NLP_PROMPT + GEN}", NLP_PROMPT + GEN,
+                          [NLP_PROMPT + 1, NLP_PROMPT + GEN, NLP_PROMPT + 3, NLP_PROMPT + 5]))
+                     for dt in (bf, f32)]
+    decode_cases += [(f"qwen2-moe L={2 * GEN}", 16, 16, 128, 2 * GEN, [GEN + 1, 2 * GEN, 10, 13],
+                      dt) for dt in (bf, f32)]
+    decode_cases += [(f"jamba L={JAMBA_PROMPT + GEN}", 32, 8, 128, JAMBA_PROMPT + GEN,
+                      [JAMBA_PROMPT + 1, JAMBA_PROMPT + GEN, 1, 130], dt) for dt in (bf, f32)]
     # the split cache: at B 7 and L 200 the wrapper cuts 64-slot splits, so
     # these lengths are 0, 1, a split edge -1, +0, +1, L and beyond L
     decode_cases += [(f"split edges group {h // kv} hd={hd} L=200", h, kv, hd, 200,
@@ -485,30 +562,48 @@ def phase_timing():
     gen = torch.Generator(device=DEV).manual_seed(1)
     bf = torch.bfloat16
     out = {}
-    # prefill: phi-3 stage (prompt 256), yi stage (prompt = phi-3's 8 tokens)
-    for label, b, s, h, kv, hd in (("phi-3 prefill", BATCH, PROMPT, 32, 32, 96),
-                                   ("yi-34b prefill", BATCH, GEN, 56, 8, 128),
-                                   ("yi-34b S=512", BATCH, 512, 56, 8, 128)):
+    # prefill: phi-3 stage (prompt 256), yi stage (prompt = phi-3's 8 tokens);
+    # nlp-chain: gemma3's local and global layers (prompt 1280, and 1100 with
+    # the window's edge inside a tile), qwen2-moe's stage (prompt = gemma3's
+    # 8 tokens) and its kernel-vs-naive prompt; jamba's attention layer
+    for label, b, s, h, kv, hd, window in (
+            ("phi-3 prefill", BATCH, PROMPT, 32, 32, 96, None),
+            ("yi-34b prefill", BATCH, GEN, 56, 8, 128, None),
+            ("yi-34b S=512", BATCH, 512, 56, 8, 128, None),
+            ("gemma3 local prefill", BATCH, NLP_PROMPT, 32, 16, 128, 1024),
+            ("gemma3 local S=1100", BATCH, 1100, 32, 16, 128, 1024),
+            ("gemma3 global prefill", BATCH, NLP_PROMPT, 32, 16, 128, None),
+            ("qwen2-moe prefill", BATCH, GEN, 16, 16, 128, None),
+            ("qwen2-moe S=256", BATCH, QWEN_PROMPT, 16, 16, 128, None),
+            ("jamba prefill", BATCH, JAMBA_PROMPT, 32, 8, 128, None)):
         q = _randn(gen, (b, s, h, hd), bf)
         k, v = _randn(gen, (b, s, kv, hd), bf), _randn(gen, (b, s, kv, hd), bf)
         sets = copies((q, k, v))
-        got, want = K1.flash_attention(q, k, v).float(), K1.flash_attention_plain(q, k, v).float()
+        kern = lambda q, k, v, w=window: K1.flash_attention(q, k, v, window=w)  # noqa: E731
+        plain_fn = lambda q, k, v, w=window: K1.flash_attention_plain(q, k, v, window=w)  # noqa: E731
+        sdpa = lambda q, k, v, w=window: sdpa_prefill(q, k, v, w)  # noqa: E731
+        got, want = kern(q, k, v).float(), plain_fn(q, k, v).float()
         err = (got - want).abs().max().item()
         assert torch.allclose(got, want, atol=TOL[bf], rtol=TOL[bf]), (label, err)
-        ms = cuda_ms(K1.flash_attention, sets)
-        plain = cuda_ms(K1.flash_attention_plain, sets)
-        lib = cuda_ms(sdpa_prefill, sets)
-        bound, by = flash_bound(b, s, h, kv, hd, bf)
-        ms32 = cuda_ms(K1.flash_attention, copies(tuple(t.float() for t in (q, k, v))))
-        bound32, by32 = flash_bound(b, s, h, kv, hd, torch.float32)
-        log(f"time K1 {label} B={b} S={s} H={h} KV={kv} hd={hd} bf16: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by}); "
-            f"f32 kernel {ms32:.4f} ms, bound {bound32:.4f} ms ({by32})")
+        lib_err = (sdpa(q, k, v).float() - want).abs().max().item()
+        ms = cuda_ms(kern, sets)
+        plain = cuda_ms(plain_fn, sets)
+        lib = cuda_ms(sdpa, sets)
+        bound, by = flash_bound(b, s, h, kv, hd, bf, window)
+        ms32 = cuda_ms(kern, copies(tuple(t.float() for t in (q, k, v))))
+        bound32, by32 = flash_bound(b, s, h, kv, hd, torch.float32, window)
+        dev, _ = _log_device_kernels(f"K1 {label} bf16", kern, q, k, v)
+        dev_lib, names = _log_device_kernels(f"SDPA {label} bf16", sdpa, q, k, v)
+        log(f"time K1 {label} B={b} S={s} H={h} KV={kv} hd={hd} window={window} bf16: kernel "
+            f"{ms:.4f} ms (device {dev:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms (device "
+            f"{dev_lib:.4f}, {sdpa_backend(names)} backend, max abs err vs plain {lib_err:.3e}), "
+            f"bound {bound:.4f} ms ({by}); f32 kernel {ms32:.4f} ms, bound {bound32:.4f} ms "
+            f"({by32})")
         out[("flash_attention", label)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                               bound_ms=bound, bound_by=by, max_abs_err=err,
-                                              f32_ms=ms32)
-        _log_device_kernels(f"K1 {label} bf16", K1.flash_attention, q, k, v)
-        _log_device_kernels(f"SDPA {label} bf16", sdpa_prefill, q, k, v)
+                                              f32_ms=ms32, device_ms=dev,
+                                              library_device_ms=dev_lib,
+                                              library_backend=sdpa_backend(names))
     for label, h, kv, hd, L, n in DECODE_SHAPES:
         q = _randn(gen, (BATCH, h, hd), bf)
         k, v = _randn(gen, (BATCH, L, kv, hd), bf), _randn(gen, (BATCH, L, kv, hd), bf)
@@ -529,38 +624,42 @@ def phase_timing():
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
             f"bound {bound:.4f} ms ({by}); f32 kernel {ms32:.4f} ms, bound {bound32:.4f} ms "
             f"({by32})")
-        dev = _log_device_kernels(f"K2 {label} bf16", K2.decode_attention, q, k, v, lens)
-        dev32 = _log_device_kernels(f"K2 {label} f32", K2.decode_attention, *args32)
-        dev_lib = _log_device_kernels(f"SDPA {label} bf16", sdpa_decode, q, k, v, lens)
+        dev, _ = _log_device_kernels(f"K2 {label} bf16", K2.decode_attention, q, k, v, lens)
+        dev32, _ = _log_device_kernels(f"K2 {label} f32", K2.decode_attention, *args32)
+        dev_lib, names = _log_device_kernels(f"SDPA {label} bf16", sdpa_decode, q, k, v, lens)
+        log(f"  SDPA {label}: {sdpa_backend(names)} backend")
         out[("decode_attention", label)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                                bound_ms=bound, bound_by=by, max_abs_err=err,
                                                f32_ms=ms32, device_ms=dev, f32_device_ms=dev32,
                                                library_device_ms=dev_lib)
         _k2_split_sweep(label, q, k, v, lens)
-    # SSD scan: the mamba2-2.7b prefill of the serve phase, and the 4-token
-    # prompt nlp-chain hands its third stage
+    # SSD scan: the mamba2-2.7b prefill of the serve phase, the 8-token prompt
+    # nlp-chain hands its third stage, and jamba's mixer (N 16)
     log("time K3: no single PyTorch call computes the SSD scan, so it has no "
         "library time (library_ms null)")
-    for label, s in (("mamba2-2.7b prefill", MAMBA_PROMPT), ("mamba2-2.7b S=4", 4)):
-        args = _ssd_inputs(gen, BATCH, s, 80, 64, 1, 128, bf)
+    for label, s, h, n in (("mamba2-2.7b prefill", MAMBA_PROMPT, 80, 128),
+                           (f"mamba2-2.7b S={GEN}", GEN, 80, 128),
+                           ("jamba prefill", JAMBA_PROMPT, 128, 16)):
+        args = _ssd_inputs(gen, BATCH, s, h, 64, 1, n, bf)
         sets = copies(args)
         got, want = K3.ssd_scan(*args, chunk=256), K3.ssd_scan_plain(*args, 256)
         err = max((got[i].float() - want[i].float()).abs().max().item() for i in (0, 1))
         assert torch.allclose(got[0].float(), want[0].float(), **SSD_TOL[bf]), (label, err)
         ms = cuda_ms(lambda *a: K3.ssd_scan(*a, chunk=256), sets)
         plain = cuda_ms(lambda *a: K3.ssd_scan_plain(*a, 256), sets)
-        bound, by = ssd_bound(BATCH, s, 80, 64, 1, 128, 256, bf)
+        bound, by = ssd_bound(BATCH, s, h, 64, 1, n, 256, bf)
         args32 = tuple(t.float() for t in args)
         ms32 = cuda_ms(lambda *a: K3.ssd_scan(*a, chunk=256), copies(args32))
-        bound32, by32 = ssd_bound(BATCH, s, 80, 64, 1, 128, 256, torch.float32)
-        log(f"time K3 {label} B={BATCH} S={s} H=80 P=64 G=1 N=128 chunk 256 bf16: kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}); f32 kernel "
-            f"{ms32:.4f} ms, bound {bound32:.4f} ms ({by32})")
+        bound32, by32 = ssd_bound(BATCH, s, h, 64, 1, n, 256, torch.float32)
+        dev, _ = _log_device_kernels(f"K3 {label} bf16", lambda *a: K3.ssd_scan(*a, chunk=256),
+                                     *args)
+        _log_device_kernels(f"K3 {label} f32", lambda *a: K3.ssd_scan(*a, chunk=256), *args32)
+        log(f"time K3 {label} B={BATCH} S={s} H={h} P=64 G=1 N={n} chunk 256 bf16: kernel "
+            f"{ms:.4f} ms (device {dev:.4f}), plain {plain:.4f} ms, bound {bound:.4f} ms ({by}); "
+            f"f32 kernel {ms32:.4f} ms, bound {bound32:.4f} ms ({by32})")
         out[("ssd_scan", label)] = dict(ms=ms, plain_ms=plain, library_ms=None,
                                        bound_ms=bound, bound_by=by, max_abs_err=err,
-                                       f32_ms=ms32)
-        _log_device_kernels(f"K3 {label} bf16", lambda *a: K3.ssd_scan(*a, chunk=256), *args)
-        _log_device_kernels(f"K3 {label} f32", lambda *a: K3.ssd_scan(*a, chunk=256), *args32)
+                                       f32_ms=ms32, device_ms=dev)
     return out
 
 
@@ -604,7 +703,8 @@ def _k2_split_sweep(label, q, k, v, lens, reps=20):
 
 def _log_device_kernels(label, fn, *args, reps=5):
     """The device kernels one call of fn launches, with their device time
-    (torch.profiler over ``reps`` calls, per call); returns their sum in ms.
+    (torch.profiler over ``reps`` calls, per call); returns their sum in ms
+    and their names.
     The launch counters count calls, not these.  A window in which the
     profiler recorded no device kernel at all is taken again."""
     from torch.profiler import ProfilerActivity, profile
@@ -624,7 +724,7 @@ def _log_device_kernels(label, fn, *args, reps=5):
                      for e in kernels)
     log(f"device kernels per call, {label}: {sum(e.count for e in kernels) / reps:g}, "
         f"{total:.4f} ms ({each})")
-    return total
+    return total, [e.key for e in kernels]
 
 
 def _full_width_stages():
@@ -690,23 +790,67 @@ def read_launches():
             "ssd_scan": K3.ssd_scan.launches}
 
 
-def _kernel_and_naive_logits(cfg, params, prompt=PROMPT, impls=("kernel", "naive")):
+class _RouteReplay:
+    """Records the experts each top-k of ``repro_torch.models.moe`` picks in
+    one run and checks a second run's picks against them, in the same
+    order.  With ``replay`` the second run routes every token to the
+    recorded experts, its weights its own probabilities at them: two paths
+    compared under one routing differ by their rounding only, not by the
+    routings a near tie flips.  Without, ``moved`` counts the tokens that
+    the second run routed otherwise."""
+
+    def __init__(self, replay):
+        self.picks, self.replay, self.second, self.moved = [], replay, False, 0
+        self._fn = MO._top_k
+
+    def __enter__(self):
+        def top_k(probs, k):
+            if not self.second:
+                vals, idx = self._fn(probs, k)
+                self.picks.append(idx)
+                return vals, idx
+            # one routing group: the einsum dispatch routes (1, T, E), the
+            # gather dispatch (T, E)
+            first = self.picks.pop(0).reshape(*probs.shape[:-1], k)
+            if self.replay:
+                return probs.gather(-1, first), first
+            vals, idx = self._fn(probs, k)
+            self.moved += int((idx != first).any(-1).sum())
+            return vals, idx
+        MO._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        MO._top_k = self._fn
+
+
+def _kernel_and_naive_logits(cfg, params, prompt=PROMPT, impls=("kernel", "naive"),
+                             moe_impls=("einsum", "einsum"), replay=False):
     """Prefill + 2 decode steps with the kernels and with the naive paths
     (attention, SSD scan), on the same weights and prompt: logits (3, B, V)
-    for each of ``impls``."""
+    for each of ``impls`` (each with its MoE dispatch from ``moe_impls``).
+    With ``replay`` the second run routes every token to the experts the
+    first picked; without, it must route every token as the first did
+    (``_RouteReplay``)."""
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (BATCH, prompt)).astype(np.int64)).to(DEV)
     runs = []
-    with torch.inference_mode():
-        for impl in impls:
+    routes = _RouteReplay(replay)
+    with torch.inference_mode(), routes:
+        for i, (impl, moe_impl) in enumerate(zip(impls, moe_impls)):
+            routes.second = i > 0
             hl, caches, s = M.prefill(params, cfg, {"tokens": toks}, impl=impl,
-                                      capacity=prompt + 2)
+                                      moe_impl=moe_impl, capacity=prompt + 2)
             lgs = [hl @ params["embed"].T]
             for step in range(2):
                 tok = toks[:, step:step + 1]
-                lg, caches = M.decode_step(params, cfg, caches, s + step, tok, impl=impl)
+                lg, caches = M.decode_step(params, cfg, caches, s + step, tok, impl=impl,
+                                           moe_impl=moe_impl)
                 lgs.append(lg)
             runs.append(torch.stack(lgs).float())
+    if len(runs) > 1:
+        assert not routes.picks, "the runs routed a different number of times"
+        assert routes.moved == 0, f"{routes.moved} tokens routed otherwise by the second run"
     return tuple(runs)
 
 
@@ -732,22 +876,33 @@ def phase_kernel_vs_naive(server):
     _bf16_greedy_agreement(f"{server.name} full width", kern, naive)
 
 
-def _bf16_greedy_agreement(label, kern, naive):
+def _bf16_greedy_agreement(label, kern, naive, what="kernel vs naive"):
     """bf16 logits of the kernel and naive paths: the difference is printed
     beside the tolerance, and the greedy tokens must agree wherever the
-    naive path's top-2 margin exceeds it."""
+    naive path's top-2 margin exceeds it, which must hold somewhere."""
     tol = TOL[torch.bfloat16]
     diff = (kern - naive).abs().max().item()
     close = torch.isclose(kern, naive, atol=tol, rtol=tol).float().mean().item()
     top2 = naive.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > tol
-    agree = (kern.argmax(-1) == naive.argmax(-1))[clear]
-    log(f"kernel vs naive ({label}, bf16, prefill + 2 decode steps): max logit diff "
+    same = kern.argmax(-1) == naive.argmax(-1)
+    log(f"{what} ({label}, bf16, prefill + 2 decode steps): max logit diff "
         f"{diff:.4e}, {close:.6f} of logits within atol=rtol={tol}; greedy tokens agree on "
-        f"{int(agree.sum())}/{int(clear.sum())} positions whose top-2 margin exceeds {tol} "
-        f"(of {clear.numel()})")
+        f"{int(same[clear].sum())}/{int(clear.sum())} positions whose top-2 margin exceeds "
+        f"{tol} (of {clear.numel()})")
     assert torch.isfinite(kern).all()
-    assert bool(agree.all())
+    assert bool(clear.any()) and bool(same[clear].all())
+
+
+def _f32_agreement(label, kern, naive, tol=None):
+    """f32 logits of two paths within ``tol`` (atol and rtol; 2e-4 by
+    default) at every position."""
+    tol = tol or dict(atol=TOL[torch.float32], rtol=TOL[torch.float32])
+    diff = (kern - naive).abs().max().item()
+    ok = torch.allclose(kern, naive, **tol)
+    log(f"{label} (f32, prefill + 2 decode steps): max logit diff {diff:.4e} ({tol}) "
+        f"{'ok' if ok else 'FAIL'}")
+    assert ok and torch.isfinite(kern).all()
 
 
 def phase_trace(engine, prompt, wall_s):
@@ -924,8 +1079,8 @@ def phase_mamba_kernel_vs_naive(server):
 
 
 def phase_profile_mamba(server):
-    """The reduced mamba2 family as ``build_pipeline`` profiles a stage
-    (nlp-chain itself waits for the MoE slice), and the full-width stage."""
+    """The reduced mamba2 family as ``build_pipeline`` profiles a stage, and
+    the full-width stage."""
     t0 = time.perf_counter()
     fam = configs.get_variant_family("mamba2-2.7b")
     reduced = StageServer("mamba2-2.7b", fam, gen_tokens=4)
@@ -941,6 +1096,263 @@ def phase_profile_mamba(server):
                 f"base_alloc {v.base_alloc}")
         log(f"  stage SLA {stage.sla:.6f} s")
     log(f"mamba2 profile phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# nlp-chain: gemma3 -> qwen2-moe -> mamba2, and jamba
+# ---------------------------------------------------------------------------
+def _gib(cfg):
+    return cfg.n_params() * 2 / 2**30      # bf16 weights
+
+
+def _best_accuracy(arch):
+    return max(x for _, _, x in configs.get_variant_family(arch))
+
+
+def _nlp_chain_stages():
+    gemma_full = configs.get_config("gemma3-27b")
+    gemma = dataclasses.replace(gemma_full, n_layers=GEMMA_LAYERS)
+    qwen, mamba = configs.get_config("qwen2-moe-a2.7b"), configs.get_config("mamba2-2.7b")
+    m = qwen.moe
+    log(f"gemma3-27b: full width (d {gemma.d_model}, {gemma.n_heads} heads, {gemma.n_kv_heads} "
+        f"KV heads, hd {gemma.head_dim_}, d_ff {gemma.d_ff}, vocab {gemma.vocab}, window "
+        f"{gemma.sliding_window}, global layers "
+        f"{[i for i in range(gemma.n_layers) if gemma.is_global_layer(i)]}), depth cut from "
+        f"{gemma_full.n_layers} to {gemma.n_layers} layers: {_gib(gemma):.2f} GiB (all "
+        f"{gemma_full.n_layers}: {_gib(gemma_full):.2f} GiB)")
+    log(f"qwen2-moe-a2.7b: published config, {qwen.n_layers} layers, d {qwen.d_model}, "
+        f"{m.n_experts} experts top-{m.top_k} of d_ff {m.d_ff_expert}, {m.n_shared_experts} "
+        f"shared (d_ff {m.d_ff_shared}), capacity factor {m.capacity_factor}; {_gib(qwen):.2f} GiB")
+    log(f"mamba2-2.7b: published config, {_gib(mamba):.2f} GiB; the chain "
+        f"{_gib(gemma) + _gib(qwen) + _gib(mamba):.2f} GiB")
+    return [StageServer("gemma3-27b", [("gemma3-27b-24L", gemma, _best_accuracy("gemma3-27b"))],
+                        gen_tokens=GEN, max_ctx=NLP_PROMPT + GEN, seed=5),
+            StageServer("qwen2-moe-a2.7b", [("qwen2-moe-a2.7b", qwen,
+                                             _best_accuracy("qwen2-moe-a2.7b"))],
+                        gen_tokens=GEN, seed=6),
+            StageServer("mamba2-2.7b", [("mamba2-2.7b", mamba, _best_accuracy("mamba2-2.7b"))],
+                        gen_tokens=GEN, seed=7)]
+
+
+def phase_serve_nlp():
+    """nlp-chain at full width: B 4, a 1280-token prompt to gemma3, 8 tokens
+    handed on by each stage.  Per batch: K1 once per attention layer's
+    prefill (gemma3 and qwen2-moe), K2 once per attention layer and decode
+    step, K3 once per mamba2 layer's prefill."""
+    t0 = time.perf_counter()
+    servers = _nlp_chain_stages()
+    torch.cuda.synchronize()
+    log(f"init: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    engine = PipelineEngine(servers)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, servers[0].config.vocab, (BATCH, NLP_PROMPT)).astype(np.int32)
+               for _ in range(3)]
+    engine.serve(prompts[0])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    lats = []
+    for p in prompts[1:]:
+        out, lat = engine.serve(p)
+        lats.append(lat)
+        assert out.shape == (BATCH, GEN) and out.dtype == np.int32
+        assert ((out >= 0) & (out < servers[2].config.vocab)).all()
+        log(f"served nlp-chain batch B={BATCH} S={NLP_PROMPT}: tokens {out.tolist()}, stage "
+            f"latencies {[f'{x * 1e3:.3f} ms' for x in lat]}, PAS {engine.pas:.4f}")
+    launches = read_launches()
+    n = len(prompts) - 1
+    n_attn = servers[0].config.n_layers + servers[1].config.n_layers
+    want = {"flash_attention": n_attn * n, "decode_attention": n_attn * GEN * n,
+            "ssd_scan": servers[2].config.n_layers * n}
+    log(f"nlp-chain launches over {n} batches: {launches} (expected {want}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    assert launches == want, launches
+    return servers, launches, lats
+
+
+def phase_moe_time(server):
+    """Device time of the qwen2-moe stage's MoE layers over one served
+    batch, by kernel name: routing, dispatch and combine (the einsums),
+    the expert products, the shared experts.  torch.profiler ranges are
+    put around ``moe_apply``, ``_expert_ffn`` and ``layers.mlp`` for this
+    run only, and each device kernel is charged to the innermost."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    saved = MO.moe_apply, MO._expert_ffn, ML.mlp
+
+    def ranged(name, fn):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+    MO.moe_apply, MO._expert_ffn, ML.mlp = (ranged("moe.moe_apply", saved[0]),
+                                            ranged("moe._expert_ffn", saved[1]),
+                                            ranged("layers.mlp", saved[2]))
+    try:
+        prompt = np.zeros((BATCH, GEN), np.int32)
+        server.process(prompt)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            server.process(prompt)
+    finally:
+        MO.moe_apply, MO._expert_ffn, ML.mlp = saved
+    parts, busy = {}, 0.0
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        names, p = [], e
+        while p is not None:
+            names.append(p.name)
+            p = p.cpu_parent
+        part = ("expert products" if "moe._expert_ffn" in names else
+                "shared experts" if "moe.moe_apply" in names and "layers.mlp" in names else
+                "routing, dispatch and combine" if "moe.moe_apply" in names else None)
+        for k in e.kernels:
+            busy += k.duration / 1e3
+            if part:
+                parts.setdefault(part, {}).setdefault(k.name, [0, 0.0])
+                parts[part][k.name][0] += 1
+                parts[part][k.name][1] += k.duration / 1e3
+    log(f"qwen2-moe stage, one served batch (B={BATCH}, prompt {GEN}, {GEN} decode steps): "
+        f"device busy {busy:.3f} ms")
+    for part, kernels in parts.items():
+        total = sum(ms for _, ms in kernels.values())
+        log(f"  MoE {part}: {total:.3f} ms, {total / busy:.4f} of the stage's busy time")
+        for name, (calls, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:4]:
+            log(f"    {ms:8.3f} ms {calls:5d} calls  {name[:90]}")
+    assert parts.get("expert products"), parts
+
+
+def phase_moe_dispatch_time():
+    """One qwen2-moe MoE layer at its published widths (bf16, fresh weights
+    from a seed) in each dispatch mode, by CUDA events, at the token counts
+    of nlp-chain's decode step (B 4), its served prefill (B 4 x 8) and the
+    kernel-vs-naive prefill (B 4 x 256): which mode is the faster where."""
+    mcfg = configs.get_config("qwen2-moe-a2.7b").moe
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    params = MO.init_moe(gen, 2048, mcfg, True, torch.bfloat16)
+    with torch.inference_mode():
+        for s in (1, GEN, QWEN_PROMPT):
+            x = _randn(gen, (BATCH, s, 2048), torch.bfloat16)
+            t = BATCH * s
+            ms = {impl: cuda_ms(lambda x, i=impl: MO.moe_apply(params, x, mcfg, impl=i),
+                                copies((x,)), iters=10)
+                  for impl in ("einsum", "gather")}
+            log(f"qwen2-moe MoE layer T={t} (capacity {MO._capacity(t, mcfg)}): einsum "
+                f"{ms['einsum']:.4f} ms, gather {ms['gather']:.4f} ms")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_nlp_kernel_vs_naive(servers):
+    """gemma3 (prompt 1280: windowed K1, the wrapped K2 ring) and qwen2-moe
+    (prompt 256: T 1024, capacity 86) through the kernels and the naive
+    paths, and qwen2-moe's einsum dispatch against its gather dispatch.  In
+    bf16 on the served weights, greedy tokens where the margin allows,
+    qwen2-moe's second run under the first run's routing (bf16 rounding
+    flips near-tie routings in every request over 24 layers); in f32 on
+    fresh weights at a cut depth (gemma3 6 layers, qwen2-moe 4, full
+    width), the same routing in both runs and logits within 2e-4."""
+    gemma, qwen = servers[0], servers[1]
+    kern, naive = _kernel_and_naive_logits(gemma.config, gemma.params[gemma.active], NLP_PROMPT)
+    _bf16_greedy_agreement(f"gemma3-27b full width {GEMMA_LAYERS} layers, S={NLP_PROMPT}",
+                           kern, naive)
+    for what, impls, moe_impls in (
+            ("kernel vs naive", ("naive", "kernel"), ("einsum",) * 2),
+            ("einsum vs gather", ("kernel",) * 2, ("gather", "einsum"))):
+        ref, got = _kernel_and_naive_logits(qwen.config, qwen.params[qwen.active], QWEN_PROMPT,
+                                            impls, moe_impls, replay=True)
+        _bf16_greedy_agreement(f"qwen2-moe full width, S={QWEN_PROMPT}", got, ref,
+                               what=f"{what} under the {impls[0]} {moe_impls[0]} run's routing")
+    del kern, naive, ref, got
+    for name, cfg, layers in (("gemma3-27b", gemma.config, GEMMA_F32_LAYERS),
+                              ("qwen2-moe-a2.7b", qwen.config, QWEN_F32_LAYERS)):
+        cfg32 = dataclasses.replace(cfg, n_layers=layers, dtype=torch.float32)
+        params32 = M.init(cfg32, seed=8)
+        prompt = NLP_PROMPT if cfg.sliding_window else QWEN_PROMPT
+        runs = [("kernel vs naive", ("kernel", "naive"), ("einsum",) * 2)]
+        if cfg.moe is not None:
+            runs.append(("einsum vs gather", ("kernel",) * 2, ("einsum", "gather")))
+        for label, impls, moe_impls in runs:
+            a, b = _kernel_and_naive_logits(cfg32, params32, prompt, impls, moe_impls)
+            _f32_agreement(f"{label} ({name} full width, {layers} layers, S={prompt})", a, b)
+        del params32, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_profile_nlp(qwen_server):
+    """The reduced nlp-chain families through build_pipeline, and the
+    full-width qwen2-moe stage, into StageModels."""
+    t0 = time.perf_counter()
+    pipe, engine = build_pipeline("nlp-chain", profile_batches=(1, 2, 4), verbose=False)
+    for st in pipe.stages:
+        log(f"profiled stage {st.name} (reduced f32 family): SLA {st.sla:.6f} s")
+        for v in st.variants:
+            log(f"  {v.name}: latency(1) {float(v.latency(1)) * 1e3:.4f} ms, "
+                f"base_alloc {v.base_alloc}")
+    out, lat = engine.serve(np.zeros((2, 16), np.int32))
+    assert out.shape == (2, 4) and len(lat) == 3
+    profs = PF.profile_stage_server(qwen_server, batches=(1, 2, 4))
+    stage = PF.build_stage(qwen_server.name, profs, th=2.0, batch_choices=(1, 2, 4),
+                           max_batch=4)
+    for p in profs:
+        log(f"profiled full-width {p.name}: batches {p.batches} latencies "
+            f"{[f'{x * 1e3:.3f} ms' for x in p.latencies]}")
+    for v in stage.variants:
+        log(f"  {v.name}: latency(1) {float(v.latency(1)) * 1e3:.4f} ms, "
+            f"base_alloc {v.base_alloc}; stage SLA {stage.sla:.6f} s")
+    log(f"nlp-chain profile phase: {time.perf_counter() - t0:.1f} s; pipeline SLA_P "
+        f"{pipe.sla:.6f} s")
+
+
+def phase_jamba():
+    """jamba-v0.1-52b at full width, one period of 8 layers: served as a
+    one-stage pipeline (per batch K1 once, K2 once a decode step, K3 once
+    per Mamba2 layer), then its kernel path against its naive path (prefill
+    + 2 decode steps): bf16 on the served weights, f32 on fresh ones."""
+    full = configs.get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    kinds = ["attention" if cfg.is_attn_layer(i) else "mamba2" for i in range(cfg.n_layers)]
+    kinds = [k + (" + MoE" if cfg.is_moe_layer(i) else " + MLP") for i, k in enumerate(kinds)]
+    log(f"jamba-v0.1-52b: full width (d {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV "
+        f"heads, d_ff {cfg.d_ff}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+        f"{cfg.moe.d_ff_expert}, d_state {cfg.ssm.d_state}), depth cut from {full.n_layers} to "
+        f"one period of {cfg.n_layers}: {kinds}; {_gib(cfg):.2f} GiB (all {full.n_layers}: "
+        f"{_gib(full):.2f} GiB)")
+    n_ssm = sum(not cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    n_attn = cfg.n_layers - n_ssm
+    server = StageServer("jamba-v0.1-52b", [("jamba-8L", cfg, _best_accuracy("jamba-v0.1-52b"))],
+                         gen_tokens=GEN, max_ctx=JAMBA_PROMPT + GEN, seed=9)
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab, (BATCH, JAMBA_PROMPT)).astype(
+        np.int32)
+    server.process(prompt)
+    reset_launches()
+    out, lat = server.process(prompt)
+    launches = read_launches()
+    want = {"flash_attention": n_attn, "decode_attention": n_attn * GEN, "ssd_scan": n_ssm}
+    log(f"served jamba batch B={BATCH} S={JAMBA_PROMPT}: tokens {out.tolist()}, latency "
+        f"{lat * 1e3:.3f} ms; launches {launches} (expected {want})")
+    assert launches == want and out.shape == (BATCH, GEN), launches
+    # the kernel path's launches over prefill + 2 decode steps, compared
+    # with the naive path under the naive run's routing
+    reset_launches()
+    naive, kern = _kernel_and_naive_logits(cfg, server.params[server.active], JAMBA_PROMPT,
+                                           ("naive", "kernel"), replay=True)
+    step = read_launches()
+    want_step = {"flash_attention": n_attn, "decode_attention": 2 * n_attn, "ssd_scan": n_ssm}
+    log(f"jamba kernel path, prefill + 2 decode steps: launches {step} (expected {want_step})")
+    assert step == want_step, step
+    _bf16_greedy_agreement(f"jamba-v0.1-52b full width, {cfg.n_layers} layers, "
+                           f"S={JAMBA_PROMPT}", kern, naive,
+                           what="kernel vs naive under the naive path's routing")
+    del server, kern, naive
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = M.init(cfg32, seed=10)
+    kern, naive = _kernel_and_naive_logits(cfg32, params32, JAMBA_PROMPT)
+    _f32_agreement(f"kernel vs naive (jamba-v0.1-52b full width, {cfg.n_layers} layers, "
+                   f"S={JAMBA_PROMPT})", kern, naive, tol=MAMBA_TOL)
+    return launches
 
 
 def main() -> int:
@@ -962,8 +1374,25 @@ def main() -> int:
                 float(np.mean([lat[0] for lat in m_lats])))
     phase_mamba_kernel_vs_naive(mamba)
     phase_profile_mamba(mamba)
-    # each kernel's launches come from the run of the path it is on
-    launches["ssd_scan"] = m_launches["ssd_scan"]
+    del mamba
+    gc.collect()
+    torch.cuda.empty_cache()
+    nlp, n_launches, n_lats = phase_serve_nlp()
+    phase_trace(PipelineEngine(nlp), np.zeros((BATCH, NLP_PROMPT), np.int32),
+                float(np.mean([sum(lat) for lat in n_lats])))
+    phase_moe_time(nlp[1])
+    phase_moe_dispatch_time()
+    phase_nlp_kernel_vs_naive(nlp)
+    phase_profile_nlp(nlp[1])
+    del nlp
+    gc.collect()
+    torch.cuda.empty_cache()
+    j_launches = phase_jamba()
+    # each kernel's launches: the sum over the served paths' runs, each read
+    # from zero just before its run and just after
+    by_path = {"vlm-classify": launches, "mamba2": m_launches, "nlp-chain": n_launches,
+               "jamba": j_launches}
+    log(f"launches by served path: {by_path}")
     sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:71", "phi-3 prefill"),
                "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -974,7 +1403,9 @@ def main() -> int:
     for name, (source, replaces, shape) in sources.items():
         t = times[(name, shape)]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": t["max_abs_err"],
+                        "launches": sum(p[name] for p in by_path.values()),
+                        "launches_by_path": {k: p[name] for k, p in by_path.items()},
+                        "max_abs_err": t["max_abs_err"],
                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "shape": shape, "f32_ms": t.get("f32_ms"),

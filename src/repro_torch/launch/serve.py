@@ -40,8 +40,8 @@ def build_pipeline(name: str, *, gen_tokens: int = 4, profile_batches=(1, 2, 4),
     """Returns (PipelineModel for the control plane, PipelineEngine).
 
     Raises ``NotImplementedError`` before profiling anything if a stage's
-    layers come with a later slice of the port (``nlp-chain``'s qwen2-moe
-    stage needs the MoE slice)."""
+    layers come with a later slice of the port (``asr-qa``'s whisper stage
+    needs the enc-dec slice)."""
     dev = D.resolve(device)
     for arch, _ in ENGINE_PIPELINES[name]:
         ST.layer_specs(configs.get_config(arch))

@@ -6,7 +6,7 @@ The reference stacks the parameters of repeated pattern blocks:
 along a leading axis, which is layer ``r * period + j``; ``stack["rem"][j]``
 is layer ``n_rep * period + j``.  The port keeps one dictionary per layer.
 Each leaf keeps its own type: a bf16 model's ``A_log``, ``D`` and
-``dt_bias`` stay f32, as in the reference.  bf16 leaves
+``dt_bias`` and a MoE layer's ``router`` stay f32, as in the reference.  bf16 leaves
 (``ml_dtypes.bfloat16`` arrays) pass through float32, which holds every
 bf16 value exactly.
 """

@@ -1,8 +1,8 @@
-"""Top-level model API of the dense, VLM and Mamba2 (``ssm``) families,
-after ``repro/models/model.py``.
+"""Top-level model API of the dense, VLM, MoE, Mamba2 (``ssm``) and hybrid
+families, after ``repro/models/model.py``.
 
   init(cfg, seed=, device=)                -> params
-  forward(params, cfg, batch, ...)         -> hidden (B,S,d)
+  forward(params, cfg, batch, ...)         -> (hidden (B,S,d), aux)
   logits(params, cfg, hidden)              -> (B, S, V)
   prefill(params, cfg, batch, ...)         -> (hidden_last (B,d), caches, prompt_len)
   decode_step(params, cfg, caches, t, tok) -> (logits (B,V), caches)
@@ -14,7 +14,10 @@ decode path operates past the prefix.  Parameters are a dictionary:
 order) and ``final_norm`` (d,).  A layer's cache is ``{"k", "v"}`` for
 attention and ``{"conv", "state"}`` (the last ``d_conv - 1`` conv inputs in
 the model's type, the SSM state in f32) for Mamba2; ``impl`` picks the
-kernels or the naive paths of attention and the SSD scan alike.
+kernels or the naive paths of attention and the SSD scan alike, and
+``moe_impl`` the MoE dispatch (``einsum``, the reference's default, or
+``gather``).  ``aux`` is the sum of the MoE layers' balancing losses, a 0-d
+f32 tensor that is zero for models without MoE.
 """
 from __future__ import annotations
 
@@ -55,43 +58,43 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
-def forward(params, cfg: ModelConfig, batch, *, impl="kernel"):
-    """Full-sequence forward; returns the final-normed hidden states past
-    the prefix.  (The reference also returns the MoE balancing loss, which
-    comes with the MoE slice.)"""
+def forward(params, cfg: ModelConfig, batch, *, impl="kernel", moe_impl="einsum"):
+    """Full-sequence forward; returns (the final-normed hidden states past
+    the prefix, aux)."""
     x, n_prefix = _embed_with_prefix(params, cfg, batch)
     b, s = x.shape[:2]
-    x, _ = ST.apply_stack(params["stack"], cfg, x, _positions(b, s, x.device),
-                          impl=impl, mode="train")
+    x, _, aux = ST.apply_stack(params["stack"], cfg, x, _positions(b, s, x.device),
+                               impl=impl, moe_impl=moe_impl, mode="train")
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, n_prefix:]
+    return x[:, n_prefix:], aux
 
 
 def logits(params, cfg: ModelConfig, hidden):
     return hidden @ params["embed"].T
 
 
-def prefill(params, cfg: ModelConfig, batch, *, impl="kernel",
+def prefill(params, cfg: ModelConfig, batch, *, impl="kernel", moe_impl="einsum",
             capacity: Optional[int] = None):
     """Process the prompt; returns (hidden_last (B, d), caches, prompt_len)."""
     x, _ = _embed_with_prefix(params, cfg, batch)
     b, s = x.shape[:2]
-    x, caches = ST.apply_stack(params["stack"], cfg, x, _positions(b, s, x.device),
-                               impl=impl, mode="prefill",
-                               capacity=capacity if capacity else s)
+    x, caches, _ = ST.apply_stack(params["stack"], cfg, x, _positions(b, s, x.device),
+                                  impl=impl, moe_impl=moe_impl, mode="prefill",
+                                  capacity=capacity if capacity else s)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x[:, -1], caches, s
 
 
 def decode_step(params, cfg: ModelConfig, caches, cache_len: int, tokens, *,
-                impl="kernel"):
+                impl="kernel", moe_impl="einsum"):
     """tokens: (B, 1) integer tensor; cache_len: the current context length.
 
     Returns (logits (B, V), caches).  Attention layers update their KV
     caches in place; Mamba2 layers return a new conv window and state."""
     x = params["embed"][tokens]
-    x, caches = ST.apply_stack(params["stack"], cfg, x, None, impl=impl,
-                               caches=caches, cache_len=cache_len, mode="decode")
+    x, caches, _ = ST.apply_stack(params["stack"], cfg, x, None, impl=impl,
+                                  moe_impl=moe_impl, caches=caches,
+                                  cache_len=cache_len, mode="decode")
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["embed"].T)[:, 0], caches
 

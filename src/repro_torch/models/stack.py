@@ -6,10 +6,12 @@ layer order and loops over it in Python (``plan`` is kept: it names the
 layer pattern and tells ``convert`` how to unstack reference parameters).
 
 The port runs dense and VLM decoders, embed -> L x [rms_norm -> RoPE GQA
-attention -> rms_norm -> MLP], and Mamba2 stacks, whose layers put the SSD
-mixer in the attention's place (with the MLP only where ``d_ff > 0``).  MoE
-and cross-attention layers raise ``NotImplementedError`` naming the slice
-that brings them.
+attention -> rms_norm -> MLP or MoE], Mamba2 stacks, whose layers put the
+SSD mixer in the attention's place (with the MLP only where ``d_ff > 0``),
+and the hybrid (jamba) that interleaves the two with MoE on every other
+layer.  A MoE layer adds its balancing loss to the stack's ``aux``.
+Cross-attention (enc-dec) layers raise ``NotImplementedError`` naming the
+slice that brings them.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MO
 from repro_torch.models import ssm as S
 
 
@@ -63,21 +66,15 @@ def plan(cfg: ModelConfig, *, cross: bool = False,
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
-    """One LayerSpec per decoder layer, in layer order.  Raises for the
-    layer kinds that later slices of the port bring."""
+    """One LayerSpec per decoder layer, in layer order.  Raises for
+    encoder-decoder models, which a later slice of the port brings."""
     if cfg.family == "encdec":
         raise NotImplementedError(
             f"{cfg.arch_id}: encoder-decoder models (cross-attention) come "
             "with the enc-dec slice (ROADMAP queue 1, item 10)")
     pl = plan(cfg)
     specs = [pl.pattern[j] for _ in range(pl.n_rep) for j in range(pl.period)]
-    specs += list(pl.rem)
-    for spec in specs:
-        if spec.is_moe:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: MoE layers come with the models/moe.py "
-                "slice (ROADMAP queue 1, item 9)")
-    return specs
+    return specs + list(pl.rem)
 
 
 def _window(cfg: ModelConfig, spec: LayerSpec) -> Optional[int]:
@@ -97,7 +94,10 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
                                      cfg.head_dim_, dt)
     else:
         p["ssm"] = S.init_mamba(gen, d, cfg.ssm, dt)
-    if cfg.d_ff > 0:
+    if spec.is_moe:
+        p["ln2"] = torch.zeros((d,), dtype=dt, device=gen.device)
+        p["moe"] = MO.init_moe(gen, d, cfg.moe, cfg.mlp_gated, dt)
+    elif cfg.d_ff > 0:
         p["ln2"] = torch.zeros((d,), dtype=dt, device=gen.device)
         p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_gated, dt)
     return p
@@ -136,10 +136,13 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device):
 # single layer application
 # ---------------------------------------------------------------------------
 def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
-                impl="kernel", cache=None, cache_len=None, mode="train",
-                capacity: Optional[int] = None):
-    """Returns (x, new_cache).  ``impl`` picks the kernel or the naive path
-    of attention and of the SSD scan alike."""
+                impl="kernel", moe_impl="einsum", cache=None, cache_len=None,
+                mode="train", capacity: Optional[int] = None):
+    """Returns (x, new_cache, aux).  ``impl`` picks the kernel or the naive
+    path of attention and of the SSD scan alike; ``moe_impl`` the MoE
+    dispatch; aux is the MoE balancing loss (0-d f32), None for a layer
+    without MoE (the reference's zero, left out to spare a launch)."""
+    aux = None
     new_cache = {}
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
     if not spec.is_attn:
@@ -158,10 +161,14 @@ def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
         if mode == "prefill":
             new_cache = _build_kv_cache(k, v, window, capacity)
     x = x + a
-    if "mlp" in params:
+    if "moe" in params:
+        h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
+        mo, aux = MO.moe_apply(params["moe"], h, cfg.moe, impl=moe_impl)
+        x = x + mo
+    elif "mlp" in params:
         h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
         x = x + L.mlp(params["mlp"], h)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _build_kv_cache(k, v, window, capacity):
@@ -217,13 +224,19 @@ def _attn_decode(params, cfg, h, cache, cache_len: int, impl):
 # full stack application
 # ---------------------------------------------------------------------------
 def apply_stack(params, cfg: ModelConfig, x, positions, *, impl="kernel",
-                caches=None, cache_len=None, mode="train", capacity=None):
-    """Returns (x, new_caches); new_caches is None in train mode.  Decode
-    takes its position from ``cache_len`` and ignores ``positions``."""
+                moe_impl="einsum", caches=None, cache_len=None, mode="train",
+                capacity=None):
+    """Returns (x, new_caches, aux_total); new_caches is None in train mode.
+    Decode takes its position from ``cache_len`` and ignores
+    ``positions``."""
     new_caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, spec in enumerate(layer_specs(cfg)):
-        x, nc = layer_apply(params[j], cfg, spec, x, positions, impl=impl,
-                            cache=caches[j] if caches is not None else None,
-                            cache_len=cache_len, mode=mode, capacity=capacity)
+        x, nc, a = layer_apply(params[j], cfg, spec, x, positions, impl=impl,
+                               moe_impl=moe_impl,
+                               cache=caches[j] if caches is not None else None,
+                               cache_len=cache_len, mode=mode, capacity=capacity)
         new_caches.append(nc)
-    return x, (new_caches if mode in ("prefill", "decode") else None)
+        if a is not None:
+            aux = aux + a
+    return x, (new_caches if mode in ("prefill", "decode") else None), aux

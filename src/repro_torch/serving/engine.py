@@ -8,7 +8,10 @@ parameters -- the serving analogue of the paper's model switching.  A
 ``PipelineEngine`` chains stages: the token output of stage i is the prompt
 of stage i+1.  Prefill attention runs the flash attention kernel and every
 decode step the decode attention kernel; a Mamba2 layer's prefill runs the
-SSD scan kernel (their plain versions on the CPU).
+SSD scan kernel (their plain versions on the CPU).  MoE layers dispatch with
+the models' default, ``moe_impl="einsum"``, as the reference engine does;
+their capacity is per batch, so the requests of one batch can change each
+other's outputs (ROADMAP R5).
 """
 from __future__ import annotations
 

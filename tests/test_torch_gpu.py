@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version,
-and the model and engine paths through the kernels against the naive path.
+the model and engine paths through the kernels against the naive path, and
+the MoE layer's two dispatch modes against each other at full width.
 
 Every test is marked ``gpu`` and skips inside the test where there is no
 CUDA device.  The file imports neither jax nor the reference package, so it
@@ -25,6 +26,7 @@ from repro_torch.kernels import decode_attention as K2
 from repro_torch.kernels import flash_attention as K1
 from repro_torch.kernels import ssd_scan as K3
 from repro_torch.models import model as M
+from repro_torch.models import moe as MO
 from repro_torch.serving.engine import StageServer
 
 pytestmark = pytest.mark.gpu
@@ -65,6 +67,15 @@ FLASH = [
     (4, 512, 56, 8, 128, None, True, torch.bfloat16),
     (4, 500, 32, 32, 96, 64, True, torch.bfloat16),
 ]
+# nlp-chain: gemma3's local layers (window 1024, group 2; at S 1100 the
+# window's edge falls inside a tile), its global layers, qwen2-moe's prefill
+FLASH += [(4, s, 32, 16, 128, 1024, True, dt) for s in (1280, 1100)
+          for dt in (torch.bfloat16, torch.float32)]
+FLASH += [(4, 1280, 32, 16, 128, None, True, torch.bfloat16),
+          (4, 256, 16, 16, 128, None, True, torch.bfloat16),
+          (4, 8, 16, 16, 128, None, True, torch.bfloat16)]
+# jamba's attention layer: prompt 256, group 4, hd 128
+FLASH += [(4, 256, 32, 8, 128, None, True, dt) for dt in (torch.bfloat16, torch.float32)]
 
 
 @pytest.mark.parametrize("b,s,h,kv,hd,window,causal,dtype", FLASH)
@@ -104,6 +115,16 @@ DECODE += [(b, L, h, kv, hd, lengths, dt)
                (1, 4096, 32, 32, 96, [4000]), (1, 4096, 32, 32, 96, [257]),
                (1, 4096, 56, 8, 128, [4096]), (1, 4096, 8, 1, 64, [0]),
                (2, 300, 24, 2, 128, [299, 65]), (2, 100, 20, 1, 64, [50, 0]))
+           for dt in (torch.float32, torch.bfloat16)]
+# nlp-chain: gemma3's wrapped 1024-slot ring (every slot valid) and its
+# global cache of 1288 slots (group 2), qwen2-moe's cache of 16 (group 1)
+DECODE += [(4, L, h, kv, 128, lengths, dt)
+           for L, h, kv, lengths in ((1024, 32, 16, [1024] * 4),
+                                     (1288, 32, 16, [1281, 1288, 1283, 1285]),
+                                     (16, 16, 16, [9, 16, 10, 13]))
+           for dt in (torch.float32, torch.bfloat16)]
+# jamba's cache of 264 slots (prompt 256 + 8), group 4
+DECODE += [(4, 264, 32, 8, 128, [257, 264, 1, 130], dt)
            for dt in (torch.float32, torch.bfloat16)]
 
 
@@ -212,8 +233,8 @@ def test_full_width_layer_kernel_path_matches_naive_path():
     params = M.init(cfg, seed=0)
     toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab, (2, 40))).cuda()
     with torch.inference_mode():
-        hk = M.forward(params, cfg, {"tokens": toks}, impl="kernel")
-        hn = M.forward(params, cfg, {"tokens": toks}, impl="naive")
+        hk, _ = M.forward(params, cfg, {"tokens": toks}, impl="kernel")
+        hn, _ = M.forward(params, cfg, {"tokens": toks}, impl="naive")
     _close(hk, hn, torch.float32)
 
 
@@ -394,6 +415,25 @@ def test_full_width_mamba_layer_kernel_path_matches_naive_path():
     params = M.init(cfg, seed=0)
     toks = torch.from_numpy(np.random.default_rng(12).integers(0, cfg.vocab, (2, 300))).cuda()
     with torch.inference_mode():
-        hk = M.forward(params, cfg, {"tokens": toks}, impl="kernel")
-        hn = M.forward(params, cfg, {"tokens": toks}, impl="naive")
+        hk, _ = M.forward(params, cfg, {"tokens": toks}, impl="kernel")
+        hn, _ = M.forward(params, cfg, {"tokens": toks}, impl="naive")
     np.testing.assert_allclose(hk.cpu().numpy(), hn.cpu().numpy(), **MAMBA_TOL)
+
+
+def test_moe_einsum_and_gather_dispatch_agree_at_full_width():
+    """One qwen2-moe layer at its published widths (60 experts top-4 of
+    d_ff 1408, 4 shared experts, d 2048) in bf16 on the card, 1024 tokens
+    (capacity 86): both dispatch modes route alike and agree within the
+    bf16 tolerance; the router stays f32."""
+    _need_cuda()
+    mcfg = configs.get_config("qwen2-moe-a2.7b").moe
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = MO.init_moe(gen, 2048, mcfg, True, torch.bfloat16)
+    assert params["router"].dtype == torch.float32
+    x = _randn(13, (4, 256, 2048), torch.bfloat16)
+    with torch.inference_mode():
+        y1, a1 = MO.moe_apply(params, x, mcfg, impl="einsum")
+        y2, a2 = MO.moe_apply(params, x, mcfg, impl="gather")
+    assert y1.dtype == torch.bfloat16 and torch.isfinite(y1.float()).all()
+    _close(y1, y2, torch.bfloat16)
+    _close(a1, a2, torch.float32)

@@ -29,7 +29,8 @@ def blocked_import():
     """A fresh interpreter that imports the port with jax and repro blocked."""
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.kernels, repro_torch.models, "
-            "repro_torch.serving, repro_torch.core, repro_torch.launch.serve\n"
+            "repro_torch.models.moe, repro_torch.serving, repro_torch.core, "
+            "repro_torch.launch.serve\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m, v in sys.modules.items() if v is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
