@@ -32,7 +32,12 @@ Phases, each of which fails the script if it fails:
    60 layers -- with random weights from a seed, counting kernel launches,
    and hold one stage's kernel path against its naive attention path;
 5. profile the reduced vlm-classify variant families exactly as
-   ``build_pipeline`` does, and the full-width phi-3 stage, into StageModels;
+   ``build_pipeline`` does, and the full-width phi-3 stage, into StageModels,
+   and hand the profiled vlm-classify PipelineModel to the port's planner:
+   ``solve_vec`` and ``solve_brute`` must pick the same config, objective,
+   PAS, cost and latency at 1, 16 and 256 requests/s, printed beside
+   ``fa2_low``'s and ``rim``'s picks (one card measures one replica only;
+   more are modelled as l / R^0.75);
 6. serve mamba2-2.7b at its published config (64 layers, d 2560) as a
    one-stage pipeline, counting SSD scan launches, trace a batch, hold its
    kernel path against its naive SSD path at S 1024 and S 1000 (in bf16:
@@ -80,6 +85,8 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.core import baselines as BL  # noqa: E402
+from repro_torch.core import optimizer as OPT  # noqa: E402
 from repro_torch.core import profiler as PF  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as K2  # noqa: E402
@@ -126,6 +133,10 @@ GEMMA_F32_LAYERS, QWEN_F32_LAYERS = 6, 4
 JAMBA_LAYERS = 8
 JAMBA_PROMPT = 256
 DEV = "cuda"
+# the planner phase: request rates, and the objective of the serving launcher's
+# defaults (--alpha 10 --beta 0.5, src/repro/launch/serve.py)
+PLANNER_RPS = (1.0, 16.0, 256.0)
+PLANNER_OBJ = dict(alpha=10.0, beta=0.5, metric="pas")
 # K2 at the first decode step of each stage (cache_len = prompt, so lengths
 # = prompt + 1 of capacity prompt + GEN), a full yi-34b cache of 520 slots,
 # gemma3's wrapped 1024-slot ring of a local layer and its global cache,
@@ -946,6 +957,40 @@ def phase_profile(phi_server):
         log(f"  {v.name}: latency(1) {float(v.latency(1)) * 1e3:.4f} ms, "
             f"base_alloc {v.base_alloc}; stage SLA {stage.sla:.6f} s")
     log(f"profile phase: {time.perf_counter() - t0:.1f} s; pipeline SLA_P {pipe.sla:.6f} s")
+    return pipe
+
+
+REPLICA_NOTE = "(latencies measured at R = 1 on one card; R > 1 modelled as l / R^0.75)"
+
+
+def _pick(sol):
+    if not sol.feasible:
+        return "infeasible"
+    cfg = ", ".join(f"{st.variant} b{st.batch} x{st.replicas}" for st in sol.config.stages)
+    return f"[{cfg}] PAS {sol.pas:.4f} cost {sol.cost:.0f} latency {sol.latency:.6f} s"
+
+
+def phase_planner(pipe):
+    """IPA's decision on latencies profiled on the card: the port's
+    ``solve_vec`` and ``solve_brute`` must pick the same config, objective,
+    PAS, cost and latency for the vlm-classify PipelineModel at each rate."""
+    t0 = time.perf_counter()
+    obj = OPT.Objective(**PLANNER_OBJ)
+    log(f"planner on the card-profiled vlm-classify (SLA_P {pipe.sla:.6f} s, objective "
+        f"{PLANNER_OBJ}) {REPLICA_NOTE}")
+    for lam in PLANNER_RPS:
+        vec = OPT.solve_vec(pipe, lam, obj)
+        brute = OPT.solve_brute(pipe, lam, obj)
+        agree = (vec.feasible == brute.feasible and vec.config == brute.config
+                 and (vec.objective, vec.pas, vec.cost, vec.latency)
+                 == (brute.objective, brute.pas, brute.cost, brute.latency))
+        log(f"  {lam:g} rps: solve_vec {_pick(vec)} against SLA_P {pipe.sla:.6f} s; "
+            f"objective {vec.objective:.6f}; solve_brute agrees: {agree} {REPLICA_NOTE}")
+        log(f"  {lam:g} rps: fa2_low {_pick(BL.fa2(pipe, lam, 'low'))}; "
+            f"rim {_pick(BL.rim(pipe, lam))} {REPLICA_NOTE}")
+        assert agree, (lam, vec, brute)
+        assert vec.feasible and vec.latency <= pipe.sla, (lam, vec)
+    log(f"planner phase: {time.perf_counter() - t0:.3f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1365,7 +1410,7 @@ def main() -> int:
     phase_trace(PipelineEngine(servers), np.zeros((BATCH, PROMPT), np.int32),
                 float(np.mean([sum(lat) for lat in lats])))
     phase_kernel_vs_naive(servers[0])
-    phase_profile(servers[0])
+    phase_planner(phase_profile(servers[0]))
     del servers
     gc.collect()
     torch.cuda.empty_cache()

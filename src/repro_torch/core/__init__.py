@@ -1,1 +1,3 @@
-from repro_torch.core import pipeline, profiler, queueing  # noqa: F401
+from repro_torch.core import (accuracy, adapter, baselines, cluster,  # noqa: F401
+                              optimizer, paper_profiles, pipeline, profiler,
+                              queueing, simulator, simulator_legacy, trace)

@@ -4,8 +4,8 @@ Builds a pipeline from the assigned architectures' variant families on the
 card, profiles every variant (paper §4.2) into the planner's
 ``StageModel``s, and serves a few batches through the ``PipelineEngine``,
 printing tokens, per-stage latencies and the pipeline accuracy score.  The
-trace replay with the IPA adapter (``core/adapter.py::run_trace`` in the
-reference) comes with the planner slice of the port.
+port has the IPA adapter (``core/adapter.py::run_trace``); replaying a
+trace through it from here is ROADMAP item 6(b).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --pipeline vlm-classify
 """

@@ -1,1 +1,1 @@
-from repro_torch.serving import engine  # noqa: F401
+from repro_torch.serving import batching, engine, request  # noqa: F401

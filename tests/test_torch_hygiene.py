@@ -1,6 +1,7 @@
 """The port stands alone: it imports no JAX and nothing of the reference
 package, keeps its kernels on the path, and its entry points do not fall
 back to the CPU when no device is given."""
+import ast
 import os
 import re
 import subprocess
@@ -22,6 +23,11 @@ PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 # exactly the modules jax and repro, not repro_torch
 FOREIGN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+# the control plane's numpy modules, each copied from the reference
+CONTROL_PLANE = tuple(f"repro_torch.{m}" for m in (
+    "core.accuracy", "core.trace", "core.cluster", "core.paper_profiles", "core.optimizer",
+    "core.baselines", "core.simulator", "core.simulator_legacy", "core.adapter",
+    "serving.request", "serving.batching"))
 
 
 @pytest.fixture(scope="module")
@@ -31,6 +37,7 @@ def blocked_import():
             "import repro_torch, repro_torch.kernels, repro_torch.models, "
             "repro_torch.models.moe, repro_torch.serving, repro_torch.core, "
             "repro_torch.launch.serve\n"
+            f"import {', '.join(CONTROL_PLANE)}\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m, v in sys.modules.items() if v is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -47,6 +54,36 @@ def test_no_jax_or_reference_imports(path):
     assert path.exists(), path
     found = FOREIGN_IMPORT.findall(path.read_text())
     assert not found, found
+
+
+def _code_only(path, rename=False):
+    """The module's AST without docstrings, with ``solve_enum``'s body
+    emptied (ROADMAP item 12) and, for a reference module, its ``repro.``
+    imports renamed to ``repro_torch.``."""
+    text = path.read_text()
+    if rename:
+        text = re.sub(r"^(\s*)(from|import) repro\.", r"\1\2 repro_torch.", text, flags=re.M)
+    tree = ast.parse(text)
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) \
+                    and isinstance(body[0].value, ast.Constant) \
+                    and isinstance(body[0].value.value, str):
+                node.body = body[1:] or [ast.Pass()]
+            if getattr(node, "name", None) == "solve_enum":
+                node.body = [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", [m.split(".", 1)[1].replace(".", "/")
+                                    for m in CONTROL_PLANE]
+                         + ["core/pipeline", "core/queueing", "core/profiler"])
+def test_control_plane_is_the_reference_code(module):
+    """With the imports renamed, a copied module differs from the reference
+    only in docstrings, comments and ``solve_enum``'s body."""
+    ref = ROOT / "src" / "repro" / f"{module}.py"
+    assert _code_only(PORT / f"{module}.py") == _code_only(ref, rename=True)
 
 
 def test_no_library_attention_or_compile_on_the_port_path():
