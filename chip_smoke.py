@@ -58,7 +58,26 @@ Phases, each of which fails the script if it fails:
 8. serve jamba-v0.1-52b at full width with its depth cut to one period of
    8 layers (attention, MoE and Mamba2 with d_state 16), counting launches,
    and hold its kernel path against its naive path in bf16 (under the naive
-   path's MoE routing) and in f32 (every token routed alike).
+   path's MoE routing) and in f32 (every token routed alike);
+9. replay IPA's loop on the card-profiled vlm-classify pipeline of phase 5:
+   ``repro_torch.launch.serve.replay`` under all four policies on the
+   launcher's defaults (bursty, 120 s, x 0.25, alpha 10, beta 0.5, seed 0),
+   logging the end-to-end metrics; a second ``ipa`` replay must give the
+   same summary and ``replay`` what ``run_trace`` gives on the same inputs;
+   then the launcher's ``main`` itself (``--seconds 60``), which profiles
+   anew;
+10. serve whisper-medium at its published config, all 24 encoder and 24
+   decoder layers (B 4, 1500 frames, a 32-token prompt, 8 greedy tokens
+   through ``prefill`` and ``decode_step``): K1 over the frames in every
+   encoder layer, over the prompt in every decoder layer and with Sq != Sk
+   (the prompt over the frames) in every cross-attention prefill, K2 over
+   the self cache and over the frames in every decode step, counting
+   launches, tracing a batch, and holding the kernel path against the naive
+   path: f32 logits within 2e-4; in bf16 both against an f32 evaluation of
+   the same weights, the kernel path's mean distance at most 1.1 times the
+   naive path's and its greedy tokens the f32 evaluation's where the margin
+   exceeds twice the naive path's own largest distance.  The engine cannot
+   serve whisper (ROADMAP R2).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -93,6 +112,9 @@ from repro_torch.kernels import decode_attention as K2  # noqa: E402
 from repro_torch.kernels import flash_attention as K1  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as K3  # noqa: E402
+from repro_torch.core import adapter as AD  # noqa: E402
+from repro_torch.core import trace as TR  # noqa: E402
+from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.launch.serve import build_pipeline  # noqa: E402
 from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -132,6 +154,13 @@ GEMMA_F32_LAYERS, QWEN_F32_LAYERS = 6, 4
 # attention at layer 4, MoE at 1, 3, 5 and 7, Mamba2 (d_state 16) elsewhere
 JAMBA_LAYERS = 8
 JAMBA_PROMPT = 256
+# whisper-medium at its published config: 1500 frames, a 32-token prompt.
+# Its bf16 kernel path's mean logit distance from an f32 evaluation of the
+# same weights may be at most this many times the naive path's (on an H100
+# the two agree within 0.1%; a kernel fault moves every position it
+# touches)
+WHISPER_PROMPT = 32
+WHISPER_MEAN_RATIO = 1.1
 DEV = "cuda"
 # the planner phase: request rates, and the objective of the serving launcher's
 # defaults (--alpha 10 --beta 0.5, src/repro/launch/serve.py)
@@ -147,7 +176,9 @@ DECODE_SHAPES = (("phi-3 decode", 32, 32, 96, PROMPT + GEN, PROMPT + 1),
                  ("gemma3 local ring", 32, 16, 128, 1024, 1024),
                  ("gemma3 global L=1288", 32, 16, 128, NLP_PROMPT + GEN, NLP_PROMPT + 1),
                  ("qwen2-moe decode", 16, 16, 128, 2 * GEN, GEN + 1),
-                 ("jamba decode", 32, 8, 128, JAMBA_PROMPT + GEN, JAMBA_PROMPT + 1))
+                 ("jamba decode", 32, 8, 128, JAMBA_PROMPT + GEN, JAMBA_PROMPT + 1),
+                 ("whisper self decode", 16, 16, 64, WHISPER_PROMPT + GEN, WHISPER_PROMPT + 1),
+                 ("whisper cross decode", 16, 16, 64, 1500, 1500))
 
 
 def log(msg: str) -> None:
@@ -178,10 +209,18 @@ def copies(tensors, min_bytes: int = 128 << 20):
     return [tuple(t.clone() for t in tensors) for _ in range(n)]
 
 
-def flash_bound(b, s, h, kv, hd, dtype, window=None):
-    pairs = sum(min(q + 1, window) if window else q + 1 for q in range(s))
+def flash_bound(b, sq, sk, h, kv, hd, dtype, window=None, causal=True):
+    """Operations over the (query, key) pairs the mask keeps (causal: keys
+    0..q, and past q - window; a row that keeps none weighs every key);
+    bytes: Q and O over Sq, K and V over Sk."""
+    def keys(q):
+        if not causal:
+            return sk
+        n = min(q + 1, sk) - (max(0, q - window + 1) if window else 0)
+        return n if n > 0 else sk
+    pairs = sum(keys(q) for q in range(sq))
     flops = 4.0 * b * h * hd * pairs
-    nbytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * torch.finfo(dtype).bits // 8
+    nbytes = (2 * b * sq * h * hd + 2 * b * sk * kv * hd) * torch.finfo(dtype).bits // 8
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
@@ -212,19 +251,23 @@ def ssd_bound(b, s, h, p, g, n, chunk, dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def sdpa_prefill(q, k, v, window=None):
-    """The yardstick: causal, or with an explicit causal window mask."""
+def sdpa_prefill(q, k, v, window=None, causal=True):
+    """The yardstick: causal, with an explicit causal window mask, or
+    (``causal=False``) unmasked over Sk keys."""
     mask = None
     if window is not None:
         i = torch.arange(q.shape[1], device=q.device)
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-        is_causal=window is None, enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+        is_causal=causal and window is None,
+        enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
 
 
 def sdpa_backend(kernel_names):
     """Which of SDPA's backends ran, from its device kernels' names."""
+    if not kernel_names:
+        return "not known (no device kernel profiled)"
     for part, backend in (("cudnn", "cuDNN"), ("flash", "flash"), ("fmha", "efficient"),
                           ("efficient", "efficient")):
         if any(part in n.lower() for n in kernel_names):
@@ -471,13 +514,31 @@ def phase_parity():
                     for h, kv, hd in ((4, 4, 96), (14, 2, 128))]
     flash_cases += [(f"edge S={s} hd={hd} group {h // kv} window 64", 2, s, h, kv, hd, 64, bf)
                     for s in (65, 129, 200) for h, kv, hd in ((4, 4, 96), (14, 2, 128))]
+    # (label, B, Sq, Sk, H, KV, hd, window, causal, dtype): the cases above
+    # are causal with Sq = Sk; whisper-medium's encoder (non-causal over 1500
+    # frames: 23 tiles of 64 and a ragged 28) and its cross-attention prefill
+    # (the 32-token prompt over the frames); causal with Sq < Sk and Sq > Sk
+    # at ragged sizes; and windowed where from row 85 on (Sq 200 over Sk 70,
+    # window 16) a row sees no key and the reference weighs every key alike
+    flash_cases = [(label, b, s, s, h, kv, hd, w, True, dt)
+                   for label, b, s, h, kv, hd, w, dt in flash_cases]
+    flash_cases += [("whisper encoder S=1500 non-causal", BATCH, 1500, 1500, 16, 16, 64, None,
+                     False, dt) for dt in (bf, f32)]
+    flash_cases += [(f"whisper cross prefill Sq={WHISPER_PROMPT} Sk=1500", BATCH,
+                     WHISPER_PROMPT, 1500, 16, 16, 64, None, False, dt) for dt in (bf, f32)]
+    flash_cases += [(f"Sq={sq} Sk={sk} {'causal' if c else 'non-causal'}", 2, sq, sk, 4, 2, 64,
+                     None, c, dt)
+                    for sq, sk in ((37, 150), (150, 37)) for c in (True, False)
+                    for dt in (bf, f32)]
+    flash_cases += [("Sq=200 Sk=70 window 16 (rows from 85 see no key)", 2, 200, 70, 4, 2,
+                     128, 16, True, dt) for dt in (bf, f32)]
     rows = {"flash_attention": [], "decode_attention": []}
-    for label, b, s, h, kv, hd, window, dt in flash_cases:
-        q = _randn(gen, (b, s, h, hd), dt)
-        k, v = _randn(gen, (b, s, kv, hd), dt), _randn(gen, (b, s, kv, hd), dt)
-        got = K1.flash_attention(q, k, v, window=window)
+    for label, b, sq, sk, h, kv, hd, window, causal, dt in flash_cases:
+        q = _randn(gen, (b, sq, h, hd), dt)
+        k, v = _randn(gen, (b, sk, kv, hd), dt), _randn(gen, (b, sk, kv, hd), dt)
+        got = K1.flash_attention(q, k, v, window=window, causal=causal)
         torch.cuda.synchronize()
-        want = K1.flash_attention_plain(q, k, v, window=window)
+        want = K1.flash_attention_plain(q, k, v, window=window, causal=causal)
         err = (got.float() - want.float()).abs().max().item()
         ok = torch.allclose(got.float(), want.float(), atol=TOL[dt], rtol=TOL[dt])
         log(f"K1 {label} {str(dt)[6:]}: max abs err {err:.3e} (tol {TOL[dt]}) "
@@ -505,6 +566,14 @@ def phase_parity():
                       dt) for dt in (bf, f32)]
     decode_cases += [(f"jamba L={JAMBA_PROMPT + GEN}", 32, 8, 128, JAMBA_PROMPT + GEN,
                       [JAMBA_PROMPT + 1, JAMBA_PROMPT + GEN, 1, 130], dt) for dt in (bf, f32)]
+    # whisper-medium's cross-attention decode: every request over all 1500
+    # frames; its self-attention cache over the 8 decode steps
+    decode_cases += [(label, 16, 16, 64, L, lengths, dt)
+                     for label, L, lengths in (
+                         ("whisper cross L=1500", 1500, [1500] * BATCH),
+                         (f"whisper self L={WHISPER_PROMPT + GEN}", WHISPER_PROMPT + GEN,
+                          [WHISPER_PROMPT + 1, WHISPER_PROMPT + GEN, 33, 36]))
+                     for dt in (bf, f32)]
     # the split cache: at B 7 and L 200 the wrapper cuts 64-slot splits, so
     # these lengths are 0, 1, a split edge -1, +0, +1, L and beyond L
     decode_cases += [(f"split edges group {h // kv} hd={hd} L=200", h, kv, hd, 200,
@@ -577,22 +646,31 @@ def phase_timing():
     # nlp-chain: gemma3's local and global layers (prompt 1280, and 1100 with
     # the window's edge inside a tile), qwen2-moe's stage (prompt = gemma3's
     # 8 tokens) and its kernel-vs-naive prompt; jamba's attention layer
-    for label, b, s, h, kv, hd, window in (
-            ("phi-3 prefill", BATCH, PROMPT, 32, 32, 96, None),
-            ("yi-34b prefill", BATCH, GEN, 56, 8, 128, None),
-            ("yi-34b S=512", BATCH, 512, 56, 8, 128, None),
-            ("gemma3 local prefill", BATCH, NLP_PROMPT, 32, 16, 128, 1024),
-            ("gemma3 local S=1100", BATCH, 1100, 32, 16, 128, 1024),
-            ("gemma3 global prefill", BATCH, NLP_PROMPT, 32, 16, 128, None),
-            ("qwen2-moe prefill", BATCH, GEN, 16, 16, 128, None),
-            ("qwen2-moe S=256", BATCH, QWEN_PROMPT, 16, 16, 128, None),
-            ("jamba prefill", BATCH, JAMBA_PROMPT, 32, 8, 128, None)):
+    # whisper-medium: its encoder (non-causal over 1500 frames), its
+    # decoder's self-attention prefill and its cross-attention prefill (the
+    # prompt over the frames)
+    for label, b, s, sk, h, kv, hd, window, causal in (
+            ("phi-3 prefill", BATCH, PROMPT, PROMPT, 32, 32, 96, None, True),
+            ("yi-34b prefill", BATCH, GEN, GEN, 56, 8, 128, None, True),
+            ("yi-34b S=512", BATCH, 512, 512, 56, 8, 128, None, True),
+            ("gemma3 local prefill", BATCH, NLP_PROMPT, NLP_PROMPT, 32, 16, 128, 1024, True),
+            ("gemma3 local S=1100", BATCH, 1100, 1100, 32, 16, 128, 1024, True),
+            ("gemma3 global prefill", BATCH, NLP_PROMPT, NLP_PROMPT, 32, 16, 128, None, True),
+            ("qwen2-moe prefill", BATCH, GEN, GEN, 16, 16, 128, None, True),
+            ("qwen2-moe S=256", BATCH, QWEN_PROMPT, QWEN_PROMPT, 16, 16, 128, None, True),
+            ("jamba prefill", BATCH, JAMBA_PROMPT, JAMBA_PROMPT, 32, 8, 128, None, True),
+            ("whisper encoder", BATCH, 1500, 1500, 16, 16, 64, None, False),
+            ("whisper self prefill", BATCH, WHISPER_PROMPT, WHISPER_PROMPT, 16, 16, 64, None,
+             True),
+            ("whisper cross prefill", BATCH, WHISPER_PROMPT, 1500, 16, 16, 64, None, False)):
         q = _randn(gen, (b, s, h, hd), bf)
-        k, v = _randn(gen, (b, s, kv, hd), bf), _randn(gen, (b, s, kv, hd), bf)
+        k, v = _randn(gen, (b, sk, kv, hd), bf), _randn(gen, (b, sk, kv, hd), bf)
         sets = copies((q, k, v))
-        kern = lambda q, k, v, w=window: K1.flash_attention(q, k, v, window=w)  # noqa: E731
-        plain_fn = lambda q, k, v, w=window: K1.flash_attention_plain(q, k, v, window=w)  # noqa: E731
-        sdpa = lambda q, k, v, w=window: sdpa_prefill(q, k, v, w)  # noqa: E731
+        kern = lambda q, k, v, w=window, c=causal: K1.flash_attention(  # noqa: E731
+            q, k, v, window=w, causal=c)
+        plain_fn = lambda q, k, v, w=window, c=causal: K1.flash_attention_plain(  # noqa: E731
+            q, k, v, window=w, causal=c)
+        sdpa = lambda q, k, v, w=window, c=causal: sdpa_prefill(q, k, v, w, c)  # noqa: E731
         got, want = kern(q, k, v).float(), plain_fn(q, k, v).float()
         err = (got - want).abs().max().item()
         assert torch.allclose(got, want, atol=TOL[bf], rtol=TOL[bf]), (label, err)
@@ -600,12 +678,13 @@ def phase_timing():
         ms = cuda_ms(kern, sets)
         plain = cuda_ms(plain_fn, sets)
         lib = cuda_ms(sdpa, sets)
-        bound, by = flash_bound(b, s, h, kv, hd, bf, window)
+        bound, by = flash_bound(b, s, sk, h, kv, hd, bf, window, causal)
         ms32 = cuda_ms(kern, copies(tuple(t.float() for t in (q, k, v))))
-        bound32, by32 = flash_bound(b, s, h, kv, hd, torch.float32, window)
+        bound32, by32 = flash_bound(b, s, sk, h, kv, hd, torch.float32, window, causal)
         dev, _ = _log_device_kernels(f"K1 {label} bf16", kern, q, k, v)
         dev_lib, names = _log_device_kernels(f"SDPA {label} bf16", sdpa, q, k, v)
-        log(f"time K1 {label} B={b} S={s} H={h} KV={kv} hd={hd} window={window} bf16: kernel "
+        log(f"time K1 {label} B={b} Sq={s} Sk={sk} H={h} KV={kv} hd={hd} window={window} "
+            f"causal={causal} bf16: kernel "
             f"{ms:.4f} ms (device {dev:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms (device "
             f"{dev_lib:.4f}, {sdpa_backend(names)} backend, max abs err vs plain {lib_err:.3e}), "
             f"bound {bound:.4f} ms ({by}); f32 kernel {ms32:.4f} ms, bound {bound32:.4f} ms "
@@ -679,7 +758,6 @@ def _k2_split_sweep(label, q, k, v, lens, reps=20):
     splits than ``split_plan``'s, through the library's C entry (the
     wrapper takes no other): the evidence for the split rule.  Each output
     is held against the plain version first."""
-    from torch.profiler import ProfilerActivity, profile
     lib, fn = K2._function()
     b, h, hd = q.shape
     L, kv = k.shape[1], k.shape[2]
@@ -701,39 +779,73 @@ def _k2_split_sweep(label, q, k, v, lens, reps=20):
         _build.check(lib, fn(*args), "decode_attention")
         torch.cuda.synchronize()
         assert torch.allclose(o.float(), want, atol=TOL[q.dtype], rtol=TOL[q.dtype]), splits
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn(*args)
-            torch.cuda.synchronize()
-        times[splits] = sum(e.self_device_time_total for e in prof.key_averages()
-                            if e.device_type.name == "CUDA") / 1e3 / reps
+        _, kernels = _device_profile(f"K2 split sweep {label} {splits} splits",
+                                     lambda _: [fn(*args) for _ in range(reps)],
+                                     lambda ks: sum(e.count for e in ks) == reps)
+        times[splits] = (sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+                         if kernels else None)
     log(f"K2 split sweep {label} {str(q.dtype)[6:]} (device ms a launch; split_plan "
         f"{K2.split_plan(b, kv, L)[0]}): "
-        + ", ".join(f"{s} splits {t:.4f}" for s, t in sorted(times.items())))
+        + ", ".join(f"{s} splits " + (f"{t:.4f}" if t is not None else "not measured")
+                    for s, t in sorted(times.items())))
+
+
+PROFILE_TRIES = 4
+
+
+def _device_profile(label, run, complete=bool, tries=PROFILE_TRIES):
+    """torch.profiler (CPU and CUDA activities) over ``run(attempt)`` and a
+    synchronize; returns the profile and its device kernels' averages, or
+    ``(None, [])`` where none of ``tries`` windows was ``complete`` (by
+    default: recorded any device kernel).  On the card CUPTI now and then
+    hands back a window with no device record, or with some records of a
+    window missing; each such window is logged and taken again, and ``run``
+    is told the attempt so that it may widen its window."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(attempt)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if complete(kernels):
+            return prof, kernels
+        log(f"profiler: window {attempt + 1} of {tries} recorded "
+            f"{sum(e.count for e in kernels)} device kernels, not a complete window ({label})")
+        time.sleep(0.5)
+    return None, []
 
 
 def _log_device_kernels(label, fn, *args, reps=5):
     """The device kernels one call of fn launches, with their device time
-    (torch.profiler over ``reps`` calls, per call); returns their sum in ms
-    and their names.
-    The launch counters count calls, not these.  A window in which the
-    profiler recorded no device kernel at all is taken again."""
-    from torch.profiler import ProfilerActivity, profile
+    (torch.profiler over ``reps`` calls, four times as many at each retry,
+    per call); returns their sum in ms and their names.  A window is
+    complete when it recorded a device kernel and a whole number of them a
+    call.  Where no window is, the time is the CUDA-event time a call over
+    back-to-back calls instead (launch gaps included), the names are empty,
+    and the log says so.
+    The launch counters count calls, not these."""
     fn(*args)
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn(*args)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        if kernels:
-            break
-    assert kernels, f"{label}: the profiler recorded no device kernel"
-    total = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
-    each = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / reps:.4f} ms"
+    calls = []
+
+    def run(attempt):
+        calls.append(reps * 4 ** attempt)
+        for _ in range(calls[-1]):
+            fn(*args)
+    def whole(kernels):
+        n = sum(e.count for e in kernels)
+        return n > 0 and n % calls[-1] == 0
+    _, kernels = _device_profile(label, run, whole)
+    if not kernels:
+        ms = cuda_ms(fn, [args], iters=4 * reps)
+        log(f"device kernels per call, {label}: the profiler recorded no complete window in "
+            f"{PROFILE_TRIES}; CUDA-event time a call instead {ms:.4f} ms")
+        return ms, []
+    n = calls[-1]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    each = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / n:.4f} ms"
                      for e in kernels)
-    log(f"device kernels per call, {label}: {sum(e.count for e in kernels) / reps:g}, "
+    log(f"device kernels per call, {label}: {sum(e.count for e in kernels) / n:g}, "
         f"{total:.4f} ms ({each})")
     return total, [e.key for e in kernels]
 
@@ -916,14 +1028,15 @@ def _f32_agreement(label, kern, naive, tol=None):
     assert ok and torch.isfinite(kern).all()
 
 
-def phase_trace(engine, prompt, wall_s):
-    """Where a served batch's device time goes: torch.profiler over one
-    serve, device time by kernel, and the device's busy share of the
-    unprofiled wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.serve(prompt)
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+def phase_trace(serve_batch, wall_s):
+    """Where a served batch's device time goes: torch.profiler over one call
+    of ``serve_batch``, device time by kernel, and the device's busy share
+    of the unprofiled wall time."""
+    _, kernels = _device_profile("trace", lambda _: serve_batch())
+    if not kernels:
+        log(f"trace: the profiler recorded no device kernel in {PROFILE_TRIES} windows; "
+            f"device busy time not measured (unprofiled wall {wall_s * 1e3:.3f} ms)")
+        return None
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"trace: device busy {busy_ms:.3f} ms in one served batch; unprofiled wall "
         f"{wall_s * 1e3:.3f} ms; busy share {busy_ms / (wall_s * 1e3):.4f}")
@@ -935,6 +1048,7 @@ def phase_trace(engine, prompt, wall_s):
             ms = sum(e.self_device_time_total for e in mine) / 1e3
             log(f"  port kernels {port}*: {ms:.3f} ms in {sum(e.count for e in mine)} launches, "
                 f"{ms / busy_ms:.4f} of the busy time")
+    return busy_ms
 
 
 def phase_profile(phi_server):
@@ -1221,7 +1335,7 @@ def phase_moe_time(server):
     the expert products, the shared experts.  torch.profiler ranges are
     put around ``moe_apply``, ``_expert_ffn`` and ``layers.mlp`` for this
     run only, and each device kernel is charged to the innermost."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
     saved = MO.moe_apply, MO._expert_ffn, ML.mlp
 
     def ranged(name, fn):
@@ -1235,10 +1349,13 @@ def phase_moe_time(server):
     try:
         prompt = np.zeros((BATCH, GEN), np.int32)
         server.process(prompt)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            server.process(prompt)
+        prof, _ = _device_profile("qwen2-moe stage", lambda _: server.process(prompt))
     finally:
         MO.moe_apply, MO._expert_ffn, ML.mlp = saved
+    if prof is None:
+        log(f"qwen2-moe stage: the profiler recorded no device kernel in {PROFILE_TRIES} "
+            f"windows; MoE device time not measured")
+        return
     parts, busy = {}, 0.0
     for e in prof.events():
         if not e.kernels:
@@ -1400,6 +1517,210 @@ def phase_jamba():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# IPA's loop on the card's profiles
+# ---------------------------------------------------------------------------
+def _replay_record(res):
+    """A TraceResult as plain values, its wall times left out."""
+    return dict(summary=res.summary(),
+                intervals=[dataclasses.astuple(dataclasses.replace(r, solve_time=0.0))
+                           for r in res.intervals],
+                latencies=res.latencies.tobytes(), arrived=res.arrived,
+                completed=res.completed, dropped=res.dropped, sla=res.sla,
+                sim_events=res.sim_events, peak_queue_depth=res.peak_queue_depth)
+
+
+def phase_replay(pipe):
+    """``replay`` on the vlm-classify PipelineModel profiled on the card, for
+    every policy, on the launcher's defaults: the end-to-end metrics (mean
+    PAS and cost over the 10 s intervals, SLA violation rate, p99 latency,
+    dropped and completed requests), the simulator's events and the
+    solver's host time.  A second ``ipa`` replay must agree with the first,
+    and ``replay`` with ``run_trace`` called directly; then the launcher's
+    ``main`` runs once (it profiles the families anew)."""
+    t0 = time.perf_counter()
+    defaults = {k: v for k, v in SV.replay.__kwdefaults__.items() if k != "policy"}
+    rates = TR.excerpt(defaults["trace"], seconds=defaults["seconds"]) * defaults["scale_rps"]
+    log(f"replay on the card-profiled vlm-classify (SLA_P {pipe.sla:.6f} s), {defaults}: "
+        f"{len(rates)} s of rates, mean {rates.mean():.4f} rps, peak {rates.max():.4f} rps "
+        f"{REPLICA_NOTE}")
+    out = {}
+    for policy in SV.POLICIES:
+        res = SV.replay(pipe, policy=policy, **defaults)
+        picks = sorted({(round(r.pas, 4), r.cost) for r in res.intervals})
+        log(f"  {policy}: {json.dumps(res.summary())}; simulator events {res.sim_events}, "
+            f"peak queue {res.peak_queue_depth}, solver_wall_s {res.solver_wall_s:.6f}; "
+            f"{len(res.intervals)} intervals, {sum(not r.feasible for r in res.intervals)} "
+            f"infeasible, (PAS, cost) chosen {picks} {REPLICA_NOTE}")
+        assert res.completed + res.dropped <= res.arrived and res.completed > 0, res.summary()
+        assert all(np.isfinite([r.pas, r.cost]).all() for r in res.intervals)
+        out[policy] = res
+    again = SV.replay(pipe, policy="ipa", **defaults)
+    direct = AD.run_trace(pipe, rates, policy="ipa", seed=defaults["seed"],
+                          obj=OPT.Objective(alpha=defaults["alpha"], beta=defaults["beta"],
+                                            metric="pas"))
+    same = _replay_record(again) == _replay_record(out["ipa"])
+    agree = _replay_record(direct) == _replay_record(out["ipa"])
+    log(f"  a second ipa replay agrees: {same}; replay agrees with run_trace: {agree}")
+    assert same and agree
+    log(f"replay phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    SV.main(["--seconds", "60"])
+    log(f"launcher main --seconds 60: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# whisper: the encoder-decoder family
+# ---------------------------------------------------------------------------
+def _whisper_batch(cfg, seed):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    frames = _randn(gen, (BATCH, cfg.encoder_seq, cfg.d_model), cfg.dtype)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (BATCH, WHISPER_PROMPT)).astype(np.int64)).to(DEV)
+    return toks, frames
+
+
+def _whisper_generate(params, cfg, toks, frames):
+    """What the engine does for a token stage, with the frames given:
+    prefill, then GEN greedy decode steps.  Returns the generated tokens
+    (B, GEN)."""
+    with torch.inference_mode():
+        hl, caches, s = M.prefill(params, cfg, {"tokens": toks, "frames": frames},
+                                  capacity=toks.shape[1] + GEN)
+        tok = torch.argmax(hl @ params["embed"].T, dim=-1)[:, None]
+        out = []
+        for i in range(GEN):
+            out.append(tok)
+            lg, caches = M.decode_step(params, cfg, caches, s + i, tok)
+            tok = torch.argmax(lg, dim=-1)[:, None]
+        gen = torch.cat(out, dim=1)
+    torch.cuda.synchronize()
+    return gen
+
+
+def _whisper_logits(params, cfg, toks, frames, impl):
+    """Prefill + 2 decode steps on the prompt's own tokens: logits (3, B, V)."""
+    with torch.inference_mode():
+        hl, caches, s = M.prefill(params, cfg, {"tokens": toks, "frames": frames}, impl=impl,
+                                  capacity=toks.shape[1] + 2)
+        lgs = [hl @ params["embed"].T]
+        for step in range(2):
+            lg, caches = M.decode_step(params, cfg, caches, s + step,
+                                       toks[:, step:step + 1], impl=impl)
+            lgs.append(lg)
+    return torch.stack(lgs).float()
+
+
+def _to_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_f32(v) for v in tree]
+    return tree.float()
+
+
+def _bf16_against_exact(label, kern, naive, exact):
+    """bf16 logits of the kernel and naive paths, each against an f32
+    evaluation of the same bf16 weights and inputs (``exact``).  At
+    whisper's 48 bf16 layers either path's own rounding moves logits by
+    about 0.06 from the exact values, so a greedy token whose top-2 margin
+    lies between 2e-2 and that can come out either way in either path, and
+    agreement at 2e-2 does not tell a kernel fault from rounding.  Held
+    instead: the kernel path's mean distance from the exact logits is at
+    most WHISPER_MEAN_RATIO times the naive path's (a fault in a kernel moves
+    every position it touches, rounding does not), and its greedy tokens
+    are the exact evaluation's wherever that margin exceeds twice the naive
+    path's largest distance from it (the reference path's own error at
+    this depth), which must hold somewhere."""
+    tol = TOL[torch.bfloat16]
+    dist = {k: ((t - exact).abs().max().item(), (t - exact).abs().mean().item())
+            for k, t in (("kernel", kern), ("naive", naive))}
+    floor = 2 * dist["naive"][0]
+    top2 = exact.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > floor
+    same = kern.argmax(-1) == exact.argmax(-1)
+    (changed_k, n_tol), (changed_n, _) = (_greedy_changes(t, exact, tol) for t in (kern, naive))
+    top2n = naive.topk(2, dim=-1).values
+    clear_n = (top2n[..., 0] - top2n[..., 1]) > tol
+    agree_kn = int((kern.argmax(-1) == naive.argmax(-1))[clear_n].sum())
+    log(f"kernel and naive vs an f32 evaluation of the same weights ({label}, bf16, prefill + 2 "
+        f"decode steps): max |logit diff| kernel {dist['kernel'][0]:.4e}, naive "
+        f"{dist['naive'][0]:.4e}; mean kernel {dist['kernel'][1]:.4e}, naive "
+        f"{dist['naive'][1]:.4e} (kernel at most {WHISPER_MEAN_RATIO} times naive); greedy "
+        f"tokens of the kernel path agree with the f32 evaluation on {int(same[clear].sum())}/"
+        f"{int(clear.sum())} positions whose top-2 margin exceeds {floor:.4e} (twice the naive "
+        f"path's largest distance); at margin {tol}: kernel changes {changed_k}, naive "
+        f"{changed_n} of {n_tol}, kernel vs naive agree on {agree_kn}/{int(clear_n.sum())} "
+        f"(of {clear.numel()}); kernel vs naive max logit diff "
+        f"{(kern - naive).abs().max().item():.4e}")
+    assert torch.isfinite(kern).all()
+    assert dist["kernel"][1] <= WHISPER_MEAN_RATIO * dist["naive"][1], dist
+    assert bool(clear.any()) and bool(same[clear].all())
+
+
+def phase_whisper():
+    """whisper-medium at its published config, full depth: B 4, 1500
+    frames, a 32-token prompt, 8 greedy tokens.  Per batch K1 runs once in
+    every encoder layer and twice in every decoder layer (self-attention and
+    cross-attention prefill), K2 twice in every decoder layer and decode
+    step.  Then its kernel path against its naive path: in bf16 on these
+    weights, each against an f32 evaluation of them (``_bf16_against_exact``);
+    in f32 on fresh weights, logits within 2e-4."""
+    cfg = configs.get_config("whisper-medium")
+    log(f"whisper-medium: published config, {cfg.n_encoder_layers} encoder + {cfg.n_layers} "
+        f"decoder layers, d {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
+        f"hd {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.encoder_seq} frames; "
+        f"{cfg.n_params() / 1e9:.3f} B params, {_gib(cfg):.2f} GiB of bf16 weights")
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed=12, device=DEV)
+    torch.cuda.synchronize()
+    log(f"init: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    toks, frames = _whisper_batch(cfg, 12)
+    _whisper_generate(params, cfg, toks, frames)        # first use
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = _whisper_generate(params, cfg, toks, frames)
+        walls.append(time.perf_counter() - t0)
+    launches = read_launches()
+    want = {"flash_attention": 2 * (cfg.n_encoder_layers + 2 * cfg.n_layers),
+            "decode_attention": 2 * 2 * cfg.n_layers * GEN, "ssd_scan": 0}
+    log(f"served whisper batch B={BATCH} frames {cfg.encoder_seq} prompt {WHISPER_PROMPT}: tokens "
+        f"{out.tolist()}; wall {[f'{w * 1e3:.3f} ms' for w in walls]}; launches over 2 batches "
+        f"{launches} (expected {want}: per batch K1 {want['flash_attention'] // 2}, K2 "
+        f"{2 * cfg.n_layers} a decode step); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    assert launches == want, launches
+    assert out.shape == (BATCH, GEN) and bool(((out >= 0) & (out < cfg.vocab)).all())
+    phase_trace(lambda: _whisper_generate(params, cfg, toks, frames), float(np.mean(walls)))
+
+    kern, naive = (_whisper_logits(params, cfg, toks, frames, impl)
+                   for impl in ("kernel", "naive"))
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = _to_f32(params)
+    del params
+    exact = _whisper_logits(params32, cfg32, toks, frames.float(), "naive")
+    _bf16_against_exact(f"whisper-medium full depth, frames {cfg.encoder_seq}, "
+                        f"S={WHISPER_PROMPT}", kern, naive, exact)
+    del params32, kern, naive, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    params32 = M.init(cfg32, seed=13, device=DEV)
+    toks, frames = _whisper_batch(cfg32, 13)
+    kern, naive = (_whisper_logits(params32, cfg32, toks, frames, impl)
+                   for impl in ("kernel", "naive"))
+    _f32_agreement(f"kernel vs naive (whisper-medium full depth, frames {cfg.encoder_seq}, "
+                   f"S={WHISPER_PROMPT})", kern, naive)
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -1407,15 +1728,17 @@ def main() -> int:
     parity = phase_parity()
     times = phase_timing()
     servers, launches, lats = phase_serve()
-    phase_trace(PipelineEngine(servers), np.zeros((BATCH, PROMPT), np.int32),
+    phase_trace(lambda e=PipelineEngine(servers): e.serve(np.zeros((BATCH, PROMPT), np.int32)),
                 float(np.mean([sum(lat) for lat in lats])))
     phase_kernel_vs_naive(servers[0])
-    phase_planner(phase_profile(servers[0]))
+    pipe = phase_profile(servers[0])
+    phase_planner(pipe)
+    phase_replay(pipe)
     del servers
     gc.collect()
     torch.cuda.empty_cache()
     mamba, m_launches, m_lats = phase_serve_mamba()
-    phase_trace(PipelineEngine([mamba]), np.zeros((BATCH, MAMBA_PROMPT), np.int32),
+    phase_trace(lambda: mamba.process(np.zeros((BATCH, MAMBA_PROMPT), np.int32)),
                 float(np.mean([lat[0] for lat in m_lats])))
     phase_mamba_kernel_vs_naive(mamba)
     phase_profile_mamba(mamba)
@@ -1423,7 +1746,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     nlp, n_launches, n_lats = phase_serve_nlp()
-    phase_trace(PipelineEngine(nlp), np.zeros((BATCH, NLP_PROMPT), np.int32),
+    phase_trace(lambda e=PipelineEngine(nlp): e.serve(np.zeros((BATCH, NLP_PROMPT), np.int32)),
                 float(np.mean([sum(lat) for lat in n_lats])))
     phase_moe_time(nlp[1])
     phase_moe_dispatch_time()
@@ -1433,10 +1756,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     j_launches = phase_jamba()
+    gc.collect()
+    torch.cuda.empty_cache()
+    w_launches = phase_whisper()
     # each kernel's launches: the sum over the served paths' runs, each read
     # from zero just before its run and just after
     by_path = {"vlm-classify": launches, "mamba2": m_launches, "nlp-chain": n_launches,
-               "jamba": j_launches}
+               "jamba": j_launches, "whisper": w_launches}
     log(f"launches by served path: {by_path}")
     sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:71", "phi-3 prefill"),

@@ -1,4 +1,5 @@
-// Causal GQA prefill attention for Hopper (sm_90a).
+// GQA prefill attention for Hopper (sm_90a): causal, windowed or not, with
+// Sq queries over Sk keys (Sq != Sk allowed, as the TPU kernel allows it).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention / _flash_kernel).  One block computes one (batch, query
@@ -10,10 +11,13 @@
 // The query head reads the KV head h / (H / KV), so K and V are never
 // repeated in memory.
 //
-// What bounds it on an H100: at the serving path's prompt lengths (S 8 to
-// 512) the bytes of Q, K, V and O (the work is about S / 4 FLOPs a byte in
-// bf16, the card's ridge about 295); above S of about 1200 the tensor
-// cores' rate.  Two kernels, chosen by dtype:
+// What bounds it on an H100: at the decoders' prompt lengths (S 8 to 512)
+// the bytes of Q, K, V and O (the work is about S / 4 FLOPs a byte in bf16,
+// the card's ridge about 295); above S of about 1200 the tensor cores' rate
+// (whisper's non-causal encoder at S 1500: S / 2 FLOPs a byte).  A few
+// queries over many keys (whisper's cross-attention prefill, Sq 32 over Sk
+// 1500) read K and V once a query tile, and their bytes bound it.  Two
+// kernels, chosen by dtype:
 //
 // * bf16 (the serving path), flash_tc_kernel: FlashAttention-2's design.
 //   A block owns 128 query rows and eight warps, each warp 16 rows.  Both
@@ -39,17 +43,37 @@
 //   shared memory, so f32 inputs are never rounded to TF32 and hold the
 //   reference's f32 tolerance of 2e-4.
 //
-// Masking follows the reference: inside the sequence a masked score is
-// -1e30, so a tile that is wholly masked for a row is wiped by the rescale
-// exp(-1e30 - m) == 0 once that row meets its first visible key; slots past
-// the end of the sequence (the ragged tail of the last tile) score -inf and
-// add nothing.  The final division guards l == 0 as the reference does.
+// Masking follows the reference: positions count from 0 on both sides, so
+// the causal mask keeps k_pos <= q_pos (top-left aligned); inside the keys a
+// masked score is -1e30, so a tile that is wholly masked for a row is wiped
+// by the rescale exp(-1e30 - m) == 0 once that row meets its first visible
+// key; slots past the last key (the ragged tail of the last tile) score -inf
+// and add nothing.  A causal row with a window can see no key at all when
+// q_pos >= Sk + window - 1 (only where Sq > Sk): the reference then weighs
+// every key alike (all scores -1e30), so a block holding such a row walks
+// every key tile from 0.  The final division guards l == 0 as the reference
+// does.
 #include <stdint.h>
 
 #include "common.cuh"
 #include "mma.cuh"
 
 namespace {
+
+// The keys [*k_begin, *k_end) that the query rows [q0, q0 + rows) can see.
+// Returns whether the key tiles before every row's window may be skipped:
+// not where a row of the tile sees no key at all (q_pos >= Sk + window - 1),
+// because the reference then weighs every key alike.
+__device__ __forceinline__ bool key_range(int q0, int rows, int Sq, int Sk, int causal,
+                                          int window, int* k_begin, int* k_end) {
+  *k_begin = 0;
+  *k_end = Sk;
+  if (!causal) return false;
+  *k_end = min(Sk, q0 + rows);
+  const bool skip = window > 0 && min(q0 + rows, Sq) - 1 < Sk + window - 1;
+  if (skip) *k_begin = max(0, q0 - window + 1);
+  return skip;
+}
 
 // ---------------------------------------------------------------------------
 // f32: CUDA-core products.  Thread layout (256 threads): thread t owns query
@@ -71,7 +95,8 @@ constexpr int smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int S, int H, int KV, float scale, int causal, int window) {
+             T* __restrict__ o, int Sq, int Sk, int H, int KV, float scale, int causal,
+             int window) {
   using namespace repro;
   constexpr int LD = HD + 1;   // padded rows: the 16 lanes of a half warp hit 16 banks
   constexpr int LP = BK + 1;
@@ -92,14 +117,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   const int64_t q_stride = (int64_t)H * HD;     // one sequence position of q / o
   const int64_t kv_stride = (int64_t)KV * HD;   // one sequence position of k / v
-  const T* qb = q + (int64_t)b * S * q_stride + (int64_t)h * HD;
-  const T* kb = k + (int64_t)b * S * kv_stride + (int64_t)kvh * HD;
-  const T* vb = v + (int64_t)b * S * kv_stride + (int64_t)kvh * HD;
-  T* ob = o + (int64_t)b * S * q_stride + (int64_t)h * HD;
+  const T* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * HD;
+  const T* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)kvh * HD;
+  const T* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)kvh * HD;
+  T* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * HD;
 
   for (int e = tid; e < BQ * HD; e += NT) {
     const int r = e / HD, d = e % HD;
-    sq[r * LD + d] = q0 + r < S ? to_float(qb[(q0 + r) * q_stride + d]) : 0.f;
+    sq[r * LD + d] = q0 + r < Sq ? to_float(qb[(q0 + r) * q_stride + d]) : 0.f;
   }
 
   float acc[4][DPT];
@@ -112,17 +137,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
   }
 
-  int k_begin = 0, k_end = S;
-  if (causal) {
-    k_end = min(S, q0 + BQ);
-    if (window > 0) k_begin = max(0, q0 - window + 1);
-  }
+  int k_begin, k_end;
+  key_range(q0, BQ, Sq, Sk, causal, window, &k_begin, &k_end);
 
   for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile's K/V are no longer read
     for (int e = tid; e < BK * HD; e += NT) {
       const int r = e / HD, d = e % HD;
-      const bool in = k0 + r < S;
+      const bool in = k0 + r < Sk;
       sk[r * LD + d] = in ? to_float(kb[(k0 + r) * kv_stride + d]) : 0.f;
       sv[r * LD + d] = in ? to_float(vb[(k0 + r) * kv_stride + d]) : 0.f;
     }
@@ -154,7 +176,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       for (int j = 0; j < 4; ++j) {
         const int ki = k0 + ln + 16 * j;
         float x;
-        if (ki >= S) {
+        if (ki >= Sk) {
           x = -INFINITY;
         } else {
           x = s[i][j] * scale;
@@ -202,7 +224,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + r0 + i;
-    if (qi >= S) continue;
+    if (qi >= Sq) continue;
     const float den = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int j = 0; j < DPT; ++j) ob[qi * q_stride + ln + 16 * j] = from_float<T>(acc[i][j] / den);
@@ -223,7 +245,7 @@ constexpr int tc_smem_bytes() {   // Q tile + a two-stage ring of K and V tiles
 }
 
 // Copy ROWS rows of HD bf16 (row stride `stride` elements in device memory)
-// into shared rows of LD; rows at or past S are zero-filled.
+// into shared rows of LD; rows at or past S (the rows of src) are zero-filled.
 template <int HD, int ROWS>
 __device__ __forceinline__ void tc_load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                              int64_t stride, int row0, int S) {
@@ -240,8 +262,8 @@ __device__ __forceinline__ void tc_load_rows(__nv_bfloat16* dst, const __nv_bflo
 template <int HD>
 __global__ void __launch_bounds__(TC_NT, 2)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S, int H,
-                int KV, float scale_log2, int causal, int window) {
+                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq,
+                int Sk, int H, int KV, float scale_log2, int causal, int window) {
   using namespace repro;
   constexpr int LD = HD + 8;   // 16-byte pad: the 8 rows of an ldmatrix tile hit 8 bank groups
   constexpr int KS = HD / 16;  // k-steps of Q K^T; also 16-wide column pairs of P V
@@ -260,21 +282,19 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
   const int64_t q_stride = (int64_t)H * HD;
   const int64_t kv_stride = (int64_t)KV * HD;
-  const __nv_bfloat16* qb = q + (int64_t)b * S * q_stride + (int64_t)h * HD;
-  const __nv_bfloat16* kb = k + (int64_t)b * S * kv_stride + (int64_t)kvh * HD;
-  const __nv_bfloat16* vb = v + (int64_t)b * S * kv_stride + (int64_t)kvh * HD;
-  __nv_bfloat16* ob = o + (int64_t)b * S * q_stride + (int64_t)h * HD;
+  const __nv_bfloat16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * HD;
+  const __nv_bfloat16* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)kvh * HD;
+  const __nv_bfloat16* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)kvh * HD;
+  __nv_bfloat16* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * HD;
 
-  int k_begin = 0, k_end = S;
-  if (causal) {
-    k_end = min(S, q0 + TC_BQ);
-    if (window > 0) k_begin = max(0, q0 - window + 1);
-  }
+  int k_begin, k_end;
+  const bool skip_before_window =
+      key_range(q0, TC_BQ, Sq, Sk, causal, window, &k_begin, &k_end);
   const int t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
 
-  tc_load_rows<HD, TC_BQ>(sq, qb, q_stride, q0, S);
-  tc_load_rows<HD, BK>(sk, kb, kv_stride, t_begin * BK, S);
-  tc_load_rows<HD, BK>(sv, vb, kv_stride, t_begin * BK, S);
+  tc_load_rows<HD, TC_BQ>(sq, qb, q_stride, q0, Sq);
+  tc_load_rows<HD, BK>(sk, kb, kv_stride, t_begin * BK, Sk);
+  tc_load_rows<HD, BK>(sv, vb, kv_stride, t_begin * BK, Sk);
   cp_async_commit();
 
   const int qw = q0 + warp * 16;             // the warp's first query row
@@ -287,8 +307,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   for (int it = t_begin; it < t_end; ++it) {
     const int stage = (it - t_begin) & 1;
     if (it + 1 < t_end) {   // the next tile streams in under this tile's products
-      tc_load_rows<HD, BK>(sk + (stage ^ 1) * BK * LD, kb, kv_stride, (it + 1) * BK, S);
-      tc_load_rows<HD, BK>(sv + (stage ^ 1) * BK * LD, vb, kv_stride, (it + 1) * BK, S);
+      tc_load_rows<HD, BK>(sk + (stage ^ 1) * BK * LD, kb, kv_stride, (it + 1) * BK, Sk);
+      tc_load_rows<HD, BK>(sv + (stage ^ 1) * BK * LD, vb, kv_stride, (it + 1) * BK, Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -297,8 +317,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     __syncthreads();
     const int k0 = it * BK;
     // a tile that hides every key from the warp's rows (past the diagonal,
-    // before the window, or rows past S) adds nothing to them: skip it
-    if (qw < S && !(causal && (k0 > qw + 15 || (window > 0 && k0 + BK - 1 <= qw - window)))) {
+    // before the window, or rows past Sq) adds nothing to them: skip it
+    if (qw < Sq && !(causal && (k0 > qw + 15
+                                || (skip_before_window && k0 + BK - 1 <= qw - window)))) {
       const __nv_bfloat16* ks_ = sk + stage * BK * LD;
       const __nv_bfloat16* vs_ = sv + stage * BK * LD;
 
@@ -322,8 +343,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       }
 
       // scale into the log2 domain; mask only a tile that crosses the
-      // diagonal, the window's edge or the end of the sequence
-      const bool edge = k0 + BK > S
+      // diagonal, the window's edge or the last key
+      const bool edge = k0 + BK > Sk
           || (causal && (k0 + BK - 1 > qw || (window > 0 && k0 <= qw + 15 - window)));
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -333,7 +354,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
           if (edge) {
             const int ki = k0 + 8 * j + 2 * t + (e & 1);
             const int qi = qr[e / 2];
-            if (ki >= S) x = -INFINITY;
+            if (ki >= Sk) x = -INFINITY;
             else if (causal && (ki > qi || (window > 0 && ki <= qi - window))) x = kMasked;
           }
           s[j][e] = x;
@@ -393,7 +414,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (qr[r] >= S) continue;
+    if (qr[r] >= Sq) continue;
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
     __nv_bfloat16* orow = ob + qr[r] * q_stride + 2 * t;
 #pragma unroll
@@ -412,28 +433,30 @@ cudaError_t allow_smem(K kernel, int bytes) {
 }
 
 template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                       int KV, float scale, int causal, int window, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                       int Sk, int H, int KV, float scale, int causal, int window,
+                       cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
   static cudaError_t configured = allow_smem(flash_kernel<float, HD>, bytes);
   if (configured != cudaSuccess) return configured;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_kernel<float, HD><<<grid, NT, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, H, KV, scale, causal, window);
+      static_cast<float*>(o), Sq, Sk, H, KV, scale, causal, window);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
-                        int H, int KV, float scale, int causal, int window, cudaStream_t stream) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                        int Sk, int H, int KV, float scale, int causal, int window,
+                        cudaStream_t stream) {
   constexpr int bytes = tc_smem_bytes<HD>();
   static cudaError_t configured = allow_smem(flash_tc_kernel<HD>, bytes);
   if (configured != cudaSuccess) return configured;
-  dim3 grid((S + TC_BQ - 1) / TC_BQ, H, B);
+  dim3 grid((Sq + TC_BQ - 1) / TC_BQ, H, B);
   flash_tc_kernel<HD><<<grid, TC_NT, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H, KV,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV,
       scale * 1.4426950408889634f, causal, window);
   return cudaGetLastError();
 }
@@ -487,23 +510,23 @@ extern "C" int repro_flash_attention_blocks_per_sm(int HD, int is_bf16) {
   }
 }
 
-// q, o: (B, S, H, HD); k, v: (B, S, KV, HD); all contiguous, on the current
-// device, and (bf16) 16-byte aligned.  window <= 0 means no window.  bf16
-// goes to the tensor-core kernel, f32 to the CUDA-core kernel.  Returns the
-// launch's cudaError_t.
+// q, o: (B, Sq, H, HD); k, v: (B, Sk, KV, HD); all contiguous, on the
+// current device, and (bf16) 16-byte aligned.  window <= 0 means no window.
+// bf16 goes to the tensor-core kernel, f32 to the CUDA-core kernel.  Returns
+// the launch's cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                                     int S, int H, int KV, int HD, int is_bf16, float scale,
-                                     int causal, int window, void* stream) {
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+                                     int Sq, int Sk, int H, int KV, int HD, int is_bf16,
+                                     float scale, int causal, int window, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     switch (HD) {
-      REPRO_FLASH_HEAD_DIMS(launch_bf16, q, k, v, o, B, S, H, KV, scale, causal, window, st)
+      REPRO_FLASH_HEAD_DIMS(launch_bf16, q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window, st)
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (HD) {
-    REPRO_FLASH_HEAD_DIMS(launch_f32, q, k, v, o, B, S, H, KV, scale, causal, window, st)
+    REPRO_FLASH_HEAD_DIMS(launch_f32, q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window, st)
     default: return (int)cudaErrorInvalidValue;
   }
 }

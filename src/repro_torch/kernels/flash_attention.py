@@ -1,14 +1,20 @@
-"""Causal GQA prefill attention: the Hopper kernel and its plain version.
+"""GQA prefill attention: the Hopper kernel and its plain version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention`` / ``_flash_kernel``) with ``csrc/flash_attention.cu``.
+Like the TPU kernel it takes Sq queries over Sk keys, Sq != Sk included
+(whisper's cross-attention prefill: the decoder's prompt over the encoder's
+frames), causal (positions counted from 0 on both sides, so the mask keeps
+``k_pos <= q_pos``), windowed or not.
 
 What bounds it on an H100 (data-sheet rates at the card's 700 W power
 limit): per (batch, head) the causal product does about S^2/2 * 4 * hd
 FLOPs on 4 * S * hd elements of Q, K, V and O, about S / 4 FLOPs a byte in
 bf16.  The card's ridge is about 295 FLOPs a byte (989 TFLOP/s bf16 over
-3.35 TB/s), so at the serving path's prompt lengths (S = 8 to 512) the
-bound is the bytes; it turns to the FLOPs only above S of about 1200.
+3.35 TB/s), so at the decoders' prompt lengths (S = 8 to 512) the bound is
+the bytes; it turns to the FLOPs only above S of about 1200 (whisper's
+non-causal encoder at S 1500 does S / 2 FLOPs a byte).  A few queries over
+many keys read K and V once a query tile: their bytes bound it.
 
 The kernel is chosen by dtype, and each dtype has exactly one:
 
@@ -49,13 +55,15 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 def _check(q, k, v, window):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"want q (B,S,H,hd) and k, v (B,S,KV,hd); got "
+        raise ValueError(f"want q (B,Sq,H,hd) and k, v (B,Sk,KV,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, hd = q.shape
     kv = k.shape[2]
-    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != hd:
+    if k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
-                         "(queries and keys are position-aligned)")
+                         "in batch or head_dim")
+    if s == 0 or k.shape[1] == 0:
+        raise ValueError(f"want Sq >= 1 and Sk >= 1; got {s} and {k.shape[1]}")
     if kv == 0 or h % kv:
         raise ValueError(f"KV heads ({kv}) must divide query heads ({h})")
     if hd not in HEAD_DIMS:
@@ -76,16 +84,16 @@ def _check(q, k, v, window):
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: Optional[int] = None):
     """The kernel's function in plain PyTorch, as ``repro.kernels.ref``
-    computes it: f32 scores, ``-1e30`` mask, softmax, probabilities cast to
-    V's type for the PV product."""
-    b, s, h, hd = q.shape
+    computes it: f32 scores, ``-1e30`` mask over Sq x Sk, softmax,
+    probabilities cast to V's type for the PV product."""
+    b, sq, h, hd = q.shape
     group = h // k.shape[2]
     k = k.repeat_interleave(group, dim=2)
     v = v.repeat_interleave(group, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / hd ** 0.5)
     if causal:
-        qp = torch.arange(s, device=q.device)[:, None]
-        kp = torch.arange(s, device=q.device)[None, :]
+        qp = torch.arange(sq, device=q.device)[:, None]
+        kp = torch.arange(k.shape[1], device=q.device)[None, :]
         ok = kp <= qp
         if window is not None:
             ok &= kp > qp - window
@@ -98,7 +106,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 def _function():
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
@@ -106,9 +114,10 @@ def _function():
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) with KV | H.  Returns
-    (B, S, H, hd) in q's dtype.  Causal masking assumes queries and keys are
-    position-aligned; ``window`` keeps keys with ``k_pos > q_pos - window``.
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with KV | H, Sq >= 1 and
+    Sk >= 1.  Returns (B, Sq, H, hd) in q's dtype.  Causal masking counts
+    query and key positions from 0 alike and keeps ``k_pos <= q_pos``;
+    ``window`` also keeps only ``k_pos > q_pos - window``.
 
     A CUDA tensor launches the tensor-core kernel for bf16 and the
     CUDA-core kernel for f32 (see the module's docstring), or raises."""
@@ -123,7 +132,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 b, s, h, k.shape[2], hd, int(q.dtype == torch.bfloat16),
+                 b, s, k.shape[1], h, k.shape[2], hd, int(q.dtype == torch.bfloat16),
                  1.0 / hd ** 0.5, int(causal), window or 0, stream)
     flash_attention.launches += 1
     _build.check(lib, err, "flash_attention")

@@ -169,3 +169,16 @@ def attn_block(params, x, positions, theta, window=None, causal=True, impl="kern
     v = project_heads(x, params["wv"])
     o = attention(q, k, v, positions, positions, window=window, causal=causal, impl=impl)
     return merge_heads(o, params["wo"]), (k, v)
+
+
+def cross_attn_block(params, x, enc, impl="kernel"):
+    """Cross-attention of the enc-dec decoder, the reference's ``attn_block``
+    with ``kv_override``: queries from the decoder states x (B, S, d), keys
+    and values from the encoder output enc (B, F, d), no RoPE on either side
+    and no mask (Sq = S over Sk = F).  Returns (out, (xk, xv)), the encoder's
+    K/V as the decode caches keep them."""
+    q = project_heads(x, params["wq"])
+    k = project_heads(enc, params["wk"])
+    v = project_heads(enc, params["wv"])
+    o = attention(q, k, v, None, None, causal=False, impl=impl)
+    return merge_heads(o, params["wo"]), (k, v)

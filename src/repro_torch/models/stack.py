@@ -8,10 +8,10 @@ layer pattern and tells ``convert`` how to unstack reference parameters).
 The port runs dense and VLM decoders, embed -> L x [rms_norm -> RoPE GQA
 attention -> rms_norm -> MLP or MoE], Mamba2 stacks, whose layers put the
 SSD mixer in the attention's place (with the MLP only where ``d_ff > 0``),
-and the hybrid (jamba) that interleaves the two with MoE on every other
-layer.  A MoE layer adds its balancing loss to the stack's ``aux``.
-Cross-attention (enc-dec) layers raise ``NotImplementedError`` naming the
-slice that brings them.
+the hybrid (jamba) that interleaves the two with MoE on every other layer,
+and the enc-dec decoder (whisper), whose layers put rms_norm -> cross-
+attention over the encoder's output between the self-attention and the MLP.
+A MoE layer adds its balancing loss to the stack's ``aux``.
 """
 from __future__ import annotations
 
@@ -65,14 +65,21 @@ def plan(cfg: ModelConfig, *, cross: bool = False,
     return StackPlan(period, n_rep, pattern, rem)
 
 
-def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
-    """One LayerSpec per decoder layer, in layer order.  Raises for
-    encoder-decoder models, which a later slice of the port brings."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: encoder-decoder models (cross-attention) come "
-            "with the enc-dec slice (ROADMAP queue 1, item 10)")
-    pl = plan(cfg)
+def decoder_plan(cfg: ModelConfig) -> StackPlan:
+    """The decoder stack's plan: its layers cross-attend in enc-dec models."""
+    return plan(cfg, cross=cfg.family == "encdec")
+
+
+def encoder_plan(cfg: ModelConfig) -> StackPlan:
+    """The enc-dec encoder's plan: ``n_encoder_layers`` layers, no
+    cross-attention."""
+    return plan(cfg, cross=False, n_layers=cfg.n_encoder_layers)
+
+
+def layer_specs(cfg: ModelConfig, pl: Optional[StackPlan] = None) -> List[LayerSpec]:
+    """One LayerSpec per layer of ``pl`` (the decoder's by default), in
+    layer order."""
+    pl = pl or decoder_plan(cfg)
     specs = [pl.pattern[j] for _ in range(pl.n_rep) for j in range(pl.period)]
     return specs + list(pl.rem)
 
@@ -94,6 +101,10 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
                                      cfg.head_dim_, dt)
     else:
         p["ssm"] = S.init_mamba(gen, d, cfg.ssm, dt)
+    if spec.has_cross:
+        p["ln_x"] = torch.zeros((d,), dtype=dt, device=gen.device)
+        p["cross"] = L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.head_dim_, dt)
     if spec.is_moe:
         p["ln2"] = torch.zeros((d,), dtype=dt, device=gen.device)
         p["moe"] = MO.init_moe(gen, d, cfg.moe, cfg.mlp_gated, dt)
@@ -103,15 +114,15 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
     return p
 
 
-def init_stack(gen: torch.Generator, cfg: ModelConfig):
-    return [init_layer(gen, cfg, spec) for spec in layer_specs(cfg)]
+def init_stack(gen: torch.Generator, cfg: ModelConfig, pl: Optional[StackPlan] = None):
+    return [init_layer(gen, cfg, spec) for spec in layer_specs(cfg, pl)]
 
 
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
 def _layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, capacity: int,
-                 device):
+                 device, enc_len: int = 0):
     if not spec.is_attn:
         s = cfg.ssm
         conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
@@ -123,12 +134,17 @@ def _layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, capacity: int,
     if cfg.sliding_window is not None and not spec.is_global:
         cap = min(cfg.sliding_window, capacity)
     shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    c = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+         "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    if spec.has_cross:
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim_)
+        c["xk"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        c["xv"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    return c
 
 
-def init_cache(cfg: ModelConfig, batch: int, capacity: int, device):
-    return [_layer_cache(cfg, spec, batch, capacity, device)
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, device, enc_len: int = 0):
+    return [_layer_cache(cfg, spec, batch, capacity, device, enc_len)
             for spec in layer_specs(cfg)]
 
 
@@ -136,12 +152,14 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device):
 # single layer application
 # ---------------------------------------------------------------------------
 def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
-                impl="kernel", moe_impl="einsum", cache=None, cache_len=None,
-                mode="train", capacity: Optional[int] = None):
+                impl="kernel", moe_impl="einsum", enc_out=None, cache=None,
+                cache_len=None, mode="train", capacity: Optional[int] = None):
     """Returns (x, new_cache, aux).  ``impl`` picks the kernel or the naive
     path of attention and of the SSD scan alike; ``moe_impl`` the MoE
-    dispatch; aux is the MoE balancing loss (0-d f32), None for a layer
-    without MoE (the reference's zero, left out to spare a launch)."""
+    dispatch; ``enc_out`` (B, F, d) is the encoder output that a
+    cross-attention layer reads outside decode; aux is the MoE balancing
+    loss (0-d f32), None for a layer without MoE (the reference's zero,
+    left out to spare a launch)."""
     aux = None
     new_cache = {}
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
@@ -161,6 +179,15 @@ def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
         if mode == "prefill":
             new_cache = _build_kv_cache(k, v, window, capacity)
     x = x + a
+    if spec.has_cross:
+        h = L.rms_norm(x, params["ln_x"], cfg.norm_eps)
+        if mode == "decode":
+            a = _cross_decode(params["cross"], h, cache, impl)
+        else:
+            a, (xk, xv) = L.cross_attn_block(params["cross"], h, enc_out, impl=impl)
+            if mode == "prefill":
+                new_cache["xk"], new_cache["xv"] = xk, xv
+        x = x + a
     if "moe" in params:
         h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
         mo, aux = MO.moe_apply(params["moe"], h, cfg.moe, impl=moe_impl)
@@ -220,12 +247,29 @@ def _attn_decode(params, cfg, h, cache, cache_len: int, impl):
     return L.merge_heads(o, params["wo"]), cache
 
 
+def _cross_decode(params, h, cache, impl):
+    """h: (B, 1, d).  The query, without RoPE, over the encoder's K/V that
+    prefill left in the cache, every request seeing all F of them (the
+    reference's ``attention_decode`` with ``cache_len = F``).  The cross
+    caches are read, never written."""
+    b, f = cache["xk"].shape[:2]
+    q = L.project_heads(h, params["wq"])
+    lengths = torch.full((b,), f, dtype=torch.int32, device=h.device)
+    if impl == "kernel":
+        o = ops.decode_attention(q[:, 0], cache["xk"], cache["xv"], lengths)[:, None]
+    elif impl == "naive":
+        o = L.attention_decode(q, cache["xk"], cache["xv"], lengths)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return L.merge_heads(o, params["wo"])
+
+
 # ---------------------------------------------------------------------------
 # full stack application
 # ---------------------------------------------------------------------------
 def apply_stack(params, cfg: ModelConfig, x, positions, *, impl="kernel",
-                moe_impl="einsum", caches=None, cache_len=None, mode="train",
-                capacity=None):
+                moe_impl="einsum", enc_out=None, caches=None, cache_len=None,
+                mode="train", capacity=None):
     """Returns (x, new_caches, aux_total); new_caches is None in train mode.
     Decode takes its position from ``cache_len`` and ignores
     ``positions``."""
@@ -233,7 +277,7 @@ def apply_stack(params, cfg: ModelConfig, x, positions, *, impl="kernel",
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, spec in enumerate(layer_specs(cfg)):
         x, nc, a = layer_apply(params[j], cfg, spec, x, positions, impl=impl,
-                               moe_impl=moe_impl,
+                               moe_impl=moe_impl, enc_out=enc_out,
                                cache=caches[j] if caches is not None else None,
                                cache_len=cache_len, mode=mode, capacity=capacity)
         new_caches.append(nc)

@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain PyTorch version,
-the model and engine paths through the kernels against the naive path, and
+"""The port on the card: each CUDA kernel against its plain PyTorch version
+(K1 with Sq != Sk too), the model and engine paths through the kernels
+against the naive path (reduced whisper's encoder-decoder included), and
 the MoE layer's two dispatch modes against each other at full width.
 
 Every test is marked ``gpu`` and skips inside the test where there is no
@@ -76,6 +77,9 @@ FLASH += [(4, 1280, 32, 16, 128, None, True, torch.bfloat16),
           (4, 8, 16, 16, 128, None, True, torch.bfloat16)]
 # jamba's attention layer: prompt 256, group 4, hd 128
 FLASH += [(4, 256, 32, 8, 128, None, True, dt) for dt in (torch.bfloat16, torch.float32)]
+# whisper-medium's encoder: non-causal over 1500 frames (23 tiles of 64 and
+# a ragged 28), 16 heads of hd 64
+FLASH += [(4, 1500, 16, 16, 64, None, False, dt) for dt in (torch.bfloat16, torch.float32)]
 
 
 @pytest.mark.parametrize("b,s,h,kv,hd,window,causal,dtype", FLASH)
@@ -83,6 +87,33 @@ def test_flash_kernel_matches_plain(b, s, h, kv, hd, window, causal, dtype):
     _need_cuda()
     q = _randn(0, (b, s, h, hd), dtype)
     k, v = _randn(1, (b, s, kv, hd), dtype), _randn(2, (b, s, kv, hd), dtype)
+    n = K1.flash_attention.launches
+    got = K1.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert K1.flash_attention.launches == n + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, K1.flash_attention_plain(q, k, v, causal=causal, window=window), dtype)
+
+
+# Sq != Sk: (b, sq, sk, h, kv, hd, window, causal, dtype).  whisper's
+# cross-attention prefill (a 32-token prompt over 1500 frames, non-causal);
+# causal both ways at ragged sizes, positions counted from 0 on both sides;
+# windowed, where from row 85 on (Sq 200 over Sk 70, window 16) a row sees
+# no key and the reference weighs every key alike
+FLASH_SQ_SK = [(4, 32, 1500, 16, 16, 64, None, False, dt)
+               for dt in (torch.bfloat16, torch.float32)]
+FLASH_SQ_SK += [(2, sq, sk, 4, 2, 64, None, causal, dt)
+                for sq, sk in ((37, 150), (150, 37)) for causal in (True, False)
+                for dt in (torch.bfloat16, torch.float32)]
+FLASH_SQ_SK += [(2, 200, 70, 4, 2, 128, 16, True, dt) for dt in (torch.bfloat16, torch.float32)]
+FLASH_SQ_SK += [(1, 130, 300, 8, 2, 96, 64, True, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,window,causal,dtype", FLASH_SQ_SK)
+def test_flash_kernel_sq_ne_sk_matches_plain(b, sq, sk, h, kv, hd, window, causal, dtype):
+    _need_cuda()
+    q = _randn(40, (b, sq, h, hd), dtype)
+    k, v = _randn(41, (b, sk, kv, hd), dtype), _randn(42, (b, sk, kv, hd), dtype)
     n = K1.flash_attention.launches
     got = K1.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -126,6 +157,9 @@ DECODE += [(4, L, h, kv, 128, lengths, dt)
 # jamba's cache of 264 slots (prompt 256 + 8), group 4
 DECODE += [(4, 264, 32, 8, 128, [257, 264, 1, 130], dt)
            for dt in (torch.float32, torch.bfloat16)]
+# whisper-medium's cross-attention decode: every request over all 1500
+# frames, 16 heads of hd 64
+DECODE += [(4, 1500, 16, 16, 64, [1500] * 4, dt) for dt in (torch.float32, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("b,L,h,kv,hd,lengths,dtype", DECODE)
@@ -208,6 +242,35 @@ def test_model_kernel_path_matches_naive_path(arch, d_model):
                 lg, caches = M.decode_step(params, cfg, caches, t, toks[:, t:t + 1], impl=impl)
                 lgs.append(lg)
             out[impl] = torch.stack(lgs)
+    _close(out["kernel"], out["naive"], torch.float32)
+
+
+def test_whisper_kernel_path_matches_naive_path():
+    """Reduced whisper, f32: the encoder, the decoder's self- and
+    cross-attention prefill (Sq 12 over Sk 48) and 4 decode steps through
+    the kernels, against the naive path; K1 runs 3 times a layer pair in
+    prefill and K2 twice a layer in every decode step."""
+    _need_cuda()
+    cfg = configs.get_config("whisper-medium", reduced=True)
+    params = M.init(cfg, seed=0)
+    rng = np.random.default_rng(12)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))).cuda()
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).cuda()
+    out = {}
+    with torch.inference_mode():
+        for impl in ("kernel", "naive"):
+            n1, n2 = K1.flash_attention.launches, K2.decode_attention.launches
+            hl, caches, s = M.prefill(params, cfg, {"tokens": toks[:, :12], "frames": frames},
+                                      impl=impl, capacity=16)
+            lgs = [hl @ params["embed"].T]
+            for t in range(12, 16):
+                lg, caches = M.decode_step(params, cfg, caches, t, toks[:, t:t + 1], impl=impl)
+                lgs.append(lg)
+            out[impl] = torch.stack(lgs)
+            launched = (K1.flash_attention.launches - n1, K2.decode_attention.launches - n2)
+            assert launched == ((cfg.n_encoder_layers + 2 * cfg.n_layers, 8 * cfg.n_layers)
+                                if impl == "kernel" else (0, 0)), launched
     _close(out["kernel"], out["naive"], torch.float32)
 
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch import configs as TC
+from repro_torch.examples import serve_pipeline
 from repro_torch.launch import serve
 from repro_torch.models import convert
 from repro_torch.models import model as TM
@@ -36,7 +37,7 @@ def blocked_import():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.kernels, repro_torch.models, "
             "repro_torch.models.moe, repro_torch.serving, repro_torch.core, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.examples.serve_pipeline\n"
             f"import {', '.join(CONTROL_PLANE)}\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m, v in sys.modules.items() if v is not None)\n")
@@ -87,10 +88,17 @@ def test_control_plane_is_the_reference_code(module):
 
 
 def test_no_library_attention_or_compile_on_the_port_path():
+    scanned = {}
     for path in PORT.rglob("*.py"):
-        text = path.read_text()
+        text = scanned[path.relative_to(PORT).as_posix()] = path.read_text()
         for banned in ("scaled_dot_product_attention", "torch.compile"):
             assert banned not in text, (path, banned)
+    # the enc-dec code is among them: the cross-attention block, the
+    # encoder, the decoder's cross layers and the launcher and example
+    assert "def cross_attn_block" in scanned["models/layers.py"]
+    assert "def encode" in scanned["models/model.py"]
+    assert "def _cross_decode" in scanned["models/stack.py"]
+    assert {"launch/serve.py", "examples/serve_pipeline.py"} <= set(scanned)
 
 
 @pytest.fixture
@@ -115,6 +123,23 @@ def test_entry_points_without_a_device_raise_when_cuda_is_absent(no_cuda):
                            "rem": ()}}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.params_from_jax(params_np, cfg)
+
+
+@pytest.mark.parametrize("entry", [serve.main, serve_pipeline.main],
+                         ids=["launch.serve", "examples.serve_pipeline"])
+def test_launchers_without_a_device_raise_when_cuda_is_absent(no_cuda, monkeypatch, entry):
+    """Without ``--device`` the launcher and the example ask for the card and
+    raise before building anything; ``--device cpu`` gets past that check
+    (tests/test_torch_serve.py runs both to the end on the CPU)."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry([])
+
+    def built(*a, device=None, **k):
+        raise StopIteration(device)
+    monkeypatch.setattr(serve, "StageServer", built)
+    with pytest.raises(StopIteration) as stop:
+        entry(["--device", "cpu"])
+    assert str(stop.value.value) == "cpu"
 
 
 def test_cpu_is_explicit(no_cuda):

@@ -4,7 +4,8 @@ On the CPU a kernel wrapper computes its plain PyTorch version; it is held
 against the reference's oracles (``repro.kernels.ref``) and its Pallas
 kernels in interpret mode, on the same inputs made with numpy from a seed.
 tests/test_torch_gpu.py holds each CUDA kernel against its plain version on
-the card.
+the card.  K1 takes Sq queries over Sk keys, Sq != Sk included, as the
+Pallas kernel does.
 
 Tolerances are the reference's own (tests/test_kernels.py): 2e-4 for f32,
 2e-2 for bf16, and for the SSD scan atol 5e-4 / rtol 5e-3 in f32 (its
@@ -119,6 +120,45 @@ def test_flash_plain_non_causal_matches_oracle(non_causal):
     (qt, kt, vt), want = non_causal
     got = ops.flash_attention(qt, kt, vt, causal=False)
     np.testing.assert_allclose(_np(got), want, **TOL["float32"])
+
+
+# Sq != Sk, as the Pallas kernel takes it (whisper's cross-attention
+# prefill): (sq, sk, causal, window, dtype), GQA group 2 at hd 64.  Causal
+# positions count from 0 on both sides; at Sq 60 over Sk 20 with a window of
+# 8 the rows from 27 on see no key, and the reference weighs every key alike.
+SQ_SK_CASES = [(sq, sk, causal, None, dtype)
+               for sq, sk in ((20, 45), (45, 20), (1, 33), (33, 1))
+               for causal in (True, False) for dtype in ("float32", "bfloat16")]
+SQ_SK_CASES += [(60, 20, True, 8, "float32"), (20, 60, True, 8, "bfloat16"),
+                (60, 20, True, 8, "bfloat16")]
+
+
+def _sq_sk_inputs(seed, b, sq, sk, h, kv, hd, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd))]
+    return [_pair(a, dtype) for a in arrs]
+
+
+@pytest.mark.parametrize("sq,sk,causal,window,dtype", SQ_SK_CASES)
+def test_flash_plain_sq_ne_sk_matches_reference_oracle(sq, sk, causal, window, dtype):
+    (qj, qt), (kj, kt), (vj, vt) = _sq_sk_inputs(8, 2, sq, sk, 4, 2, 64, dtype)
+    want = jref.flash_attention_ref(qj, kj, vj, causal=causal, window=window)
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("sq,sk", [(128, 256), (256, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_sq_ne_sk_matches_pallas_interpret(sq, sk, causal, dtype):
+    """The Pallas kernel's own sizes (multiples of its 128-row blocks): 4
+    query heads over 2 KV heads, hd 64."""
+    (qj, qt), (kj, kt), (vj, vt) = _sq_sk_inputs(9, 1, sq, sk, 4, 2, 64, dtype)
+    want = jops.flash_attention(qj, kj, vj, causal=causal, interpret=True)
+    got = ops.flash_attention(qt, kt, vt, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
 
 
 # (b, L, h, kv, hd, lengths, dtype): ragged L, lengths 0 and L, group 7
@@ -304,16 +344,17 @@ def test_cpu_tensors_launch_no_kernel():
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "contiguity", "group",
-                                 "window"])
+                                 "window", "batch", "no_keys", "no_queries"])
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad):
     b, s, h, kv, hd = 1, 8, 4, 2, 32
     if bad == "head_dim":
         hd = 48
     if bad == "group":
         kv = 3
-    q = torch.zeros((b, s, h, hd))
-    k = torch.zeros((b, s, kv, hd))
-    v = torch.zeros((b, s, kv, hd))
+    q = torch.zeros((b, 0 if bad == "no_queries" else s, h, hd))
+    sk = 0 if bad == "no_keys" else s + 3
+    k = torch.zeros((b + (bad == "batch"), sk, kv, hd))
+    v = torch.zeros((b + (bad == "batch"), sk, kv, hd))
     window = None
     if bad == "dtype":
         v = v.to(torch.bfloat16)

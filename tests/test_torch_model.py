@@ -37,6 +37,8 @@ from repro import configs as JC
 from repro.models import model as JM
 from repro.models import stack as JS
 from repro_torch import configs as TC
+from repro_torch.core import profiler as TPF
+from repro_torch.launch import serve
 from repro_torch.models import convert
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMO
@@ -299,6 +301,28 @@ def test_prompt_longer_than_cache_raises():
                    capacity=8)
 
 
-def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        TM.init(TC.get_config("whisper-medium", reduced=True), device="cpu")
+def test_whisper_builds_with_the_ports_own_init():
+    """Parity with the reference is in tests/test_torch_encdec.py."""
+    cfg = TC.get_config("whisper-medium", reduced=True)
+    params = TM.init(cfg, device="cpu")
+    assert len(params["enc_stack"]) == cfg.n_encoder_layers
+    assert params["enc_norm"].shape == (cfg.d_model,)
+    assert all({"ln_x", "cross"} <= set(p) for p in params["stack"])
+    assert not any("cross" in p for p in params["enc_stack"])
+    frames = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    toks = torch.zeros((1, 5), dtype=torch.int64)
+    with torch.inference_mode():
+        hl, caches, s = TM.prefill(params, cfg, {"tokens": toks, "frames": frames},
+                                   capacity=6)
+        lg, _ = TM.decode_step(params, cfg, caches, s, toks[:, :1])
+    assert lg.shape == (1, cfg.vocab) and bool(torch.isfinite(lg).all())
+
+
+def test_asr_qa_pipeline_raises_before_profiling_naming_r2(monkeypatch):
+    def never(*a, **k):
+        raise AssertionError("profiled a stage")
+    monkeypatch.setattr(TPF, "profile_stage_server", never)
+    monkeypatch.setattr(serve, "StageServer", never)
+    with pytest.raises(NotImplementedError, match="R2"):
+        serve.build_pipeline("asr-qa", verbose=False, device="cpu")
