@@ -77,7 +77,24 @@ Phases, each of which fails the script if it fails:
    the same weights, the kernel path's mean distance at most 1.1 times the
    naive path's and its greedy tokens the f32 evaluation's where the margin
    exceeds twice the naive path's own largest distance.  The engine cannot
-   serve whisper (ROADMAP R2).
+   serve whisper (ROADMAP R2);
+11. enum (after phase 5's planner): ``solve_enum``, the float32 torch
+   enumeration, on the card must pick what ``solve_vec`` and
+   ``solve_brute`` pick at 1, 16 and 256 requests/s;
+12. predictor (after phase 9's replay): the LSTM's forward on the card
+   against the CPU (within 1e-5), its training on the 14-day train region
+   (400 steps, stride 30), timed, its SMAPE on the test region (below 15,
+   and at most persistence + 1), then Fig. 16's ablation (``run_trace``
+   under ``ipa`` with reactive, LSTM and oracle demand) on the paper's
+   video pipeline and on the card-profiled vlm-classify pipeline;
+13. train (last): starcoder2-3b at its published config through the
+   training launcher (``launch.train.main``, 5 steps at B 8, S 128, naive
+   attention), each step's loss and grad norm finite, then its step time,
+   tokens/s, peak memory and the optimizer's share of the step's device
+   time (torch.profiler); one reduced f32 step on the card against the CPU
+   (loss and gradients within 2e-4); the reference's learning check (120
+   steps of reduced starcoder2-3b, the loss down by more than 0.2); and
+   each kernel refusing inputs that require grad, before launching.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -113,13 +130,19 @@ from repro_torch.kernels import flash_attention as K1  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as K3  # noqa: E402
 from repro_torch.core import adapter as AD  # noqa: E402
+from repro_torch.core import paper_profiles as PP  # noqa: E402
+from repro_torch.core import predictor as PR  # noqa: E402
 from repro_torch.core import trace as TR  # noqa: E402
 from repro_torch.launch import serve as SV  # noqa: E402
+from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.launch.serve import build_pipeline  # noqa: E402
 from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MO  # noqa: E402
 from repro_torch.serving.engine import PipelineEngine, StageServer  # noqa: E402
+from repro_torch.training import data as TD  # noqa: E402
+from repro_torch.training import optim as OT  # noqa: E402
+from repro_torch.training import train as TT  # noqa: E402
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}    # tests/test_kernels.py:13-15
 # the SSD scan sums its decays in another order than the plain version's
@@ -1721,6 +1744,242 @@ def phase_whisper():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# enum: the planner's float32 enumeration on the card
+# ---------------------------------------------------------------------------
+def phase_enum(pipe):
+    """``solve_enum`` (torch, float32, on the card) must pick what
+    ``solve_vec`` and ``solve_brute`` pick on the card-profiled vlm-classify
+    pipeline at each rate of phase planner."""
+    t0 = time.perf_counter()
+    obj = OPT.Objective(**PLANNER_OBJ)
+    for lam in PLANNER_RPS:
+        enum = OPT.solve_enum(pipe, lam, obj)
+        vec, brute = OPT.solve_vec(pipe, lam, obj), OPT.solve_brute(pipe, lam, obj)
+        agree = all(enum.feasible == s.feasible and enum.config == s.config
+                    and enum.objective == s.objective for s in (vec, brute))
+        log(f"  enum {lam:g} rps: solve_enum {_pick(enum)}, objective {enum.objective:.6f}, "
+            f"{enum.solve_time * 1e3:.3f} ms on the card; agrees with solve_vec and "
+            f"solve_brute: {agree} {REPLICA_NOTE}")
+        assert agree, (lam, enum, vec, brute)
+    log(f"enum phase: {time.perf_counter() - t0:.3f} s")
+
+
+# ---------------------------------------------------------------------------
+# predictor: the LSTM load predictor on the card, and Fig. 16's ablation
+# ---------------------------------------------------------------------------
+# benchmarks/run.py:221 (fig16, full mode): 400 steps, windows at stride 30
+LSTM_STEPS, LSTM_STRIDE = 400, 30
+
+
+class _ScaledPredictor:
+    """An LSTM trained on the trace's own scale, for rates that are the
+    trace's times ``scale`` (the launcher's ``--scale-rps``)."""
+
+    def __init__(self, lstm, scale):
+        self.lstm, self.scale = lstm, scale
+
+    def predict(self, history):
+        return self.scale * self.lstm.predict(np.asarray(history) / self.scale)
+
+
+def _fig16(label, pipe, rates, obj, seed, lstm):
+    """``run_trace`` under ``ipa`` with reactive, LSTM and oracle demand."""
+    out = {}
+    for name, kw in (("reactive", {}), ("lstm", dict(predictor=lstm)),
+                     ("oracle", dict(oracle=PR.OraclePredictor(rates)))):
+        res = AD.run_trace(pipe, rates, policy="ipa", obj=obj, seed=seed, **kw)
+        err = np.mean([abs(r.lam_hat - r.lam_true) / r.lam_true for r in res.intervals])
+        log(f"  fig16 {label} {name}: {json.dumps(res.summary())}; mean |lam_hat - lam_true| / "
+            f"lam_true {err:.4f}; {len(res.intervals)} intervals")
+        assert res.completed > 0 and np.isfinite([r.lam_hat for r in res.intervals]).all()
+        out[name] = res.summary()
+    return out
+
+
+def phase_predictor(pipe):
+    """The LSTM's forward on the card against the CPU (within 1e-5); its
+    training on the 14-day train region (benchmarks/run.py's full fig16
+    settings), its SMAPE on the test region at stride 200 (below 15, and no
+    worse than persistence + 1: tests/test_predictor_trace.py:58-67); then
+    Fig. 16's ablation on the paper's video pipeline (bursty 120 s, seed 7)
+    and on the card-profiled vlm-classify pipeline (the launcher's replay)."""
+    t0 = time.perf_counter()
+    params = PR.init_lstm(torch.Generator().manual_seed(0))
+    x = np.random.default_rng(3).standard_normal((128, PR.HISTORY)).astype(np.float32)
+    want = PR.lstm_apply(params, torch.from_numpy(x))
+    got = PR.lstm_apply({k: v.to(DEV) for k, v in params.items()}, torch.from_numpy(x).to(DEV))
+    err = float((got.cpu() - want).abs().max())
+    log(f"predictor: lstm_apply on the card vs the CPU, B 128 T {PR.HISTORY}: max abs err {err:.3e}")
+    assert err <= 1e-5, err
+    train = TR.train_region()
+    t1 = time.perf_counter()
+    lstm = PR.LSTMPredictor.train(train, steps=LSTM_STEPS, stride=LSTM_STRIDE, device=DEV)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    X, y = PR.make_windows(TR.test_region(), stride=200)
+    s_lstm = PR.smape(lstm.predict_batch(X), y)
+    s_last = PR.smape(X[:, -1], y)
+    log(f"predictor: LSTM trained on {len(train)} s of trace ({LSTM_STEPS} steps, stride "
+        f"{LSTM_STRIDE}) in {train_s:.3f} s (host clock, synchronised); SMAPE on the test "
+        f"region {s_lstm:.4f}% against persistence {s_last:.4f}% ({len(y)} windows)")
+    assert s_lstm < 15.0 and s_lstm <= s_last + 1.0, (s_lstm, s_last)
+    video = PP.video()
+    _fig16("video (paper profiles, bursty 120 s, seed 7)", video, TR.excerpt("bursty", 120),
+           OPT.Objective(**PP.PAPER_WEIGHTS["video"], metric="pas"), 7, lstm)
+    d = SV.replay.__kwdefaults__
+    rates = TR.excerpt(d["trace"], seconds=d["seconds"]) * d["scale_rps"]
+    _fig16(f"card-profiled vlm-classify ({d['trace']} {d['seconds']} s x {d['scale_rps']}, "
+           f"seed {d['seed']}) {REPLICA_NOTE}", pipe, rates,
+           OPT.Objective(alpha=d["alpha"], beta=d["beta"], metric="pas"), d["seed"],
+           _ScaledPredictor(lstm, d["scale_rps"]))
+    log(f"predictor phase: {time.perf_counter() - t0:.1f} s")
+    return dict(train_s=train_s, smape=s_lstm, persistence=s_last)
+
+
+# ---------------------------------------------------------------------------
+# train: starcoder2-3b at its published config through the launcher
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_STEPS = 5
+TRAIN_BATCH, TRAIN_SEQ = 8, 128          # the launcher's defaults
+LEARN_STEPS = 120                        # tests/test_training_serving.py:22-28
+
+
+def _grads(params, cfg, batch):
+    leaves = OT.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = TT.loss_fn(params, cfg, batch, impl="naive")
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    flat = iter(grads)
+    return loss.detach(), OT.tree_map(lambda _: next(flat), params)
+
+
+def _train_full_width():
+    cfg = configs.get_config(TRAIN_ARCH)
+    log(f"train: {TRAIN_ARCH} at its published config (hf:bigcode/starcoder2-3b; "
+        f"{cfg.n_layers} layers, d {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads; {cfg.n_params() / 1e9:.2f} B params, "
+        f"{cfg.dtype}), B {TRAIN_BATCH} S {TRAIN_SEQ}, nothing cut")
+    t0 = time.perf_counter()
+    params, state, hist = LT.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                                   "--log-every", "1"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for h in hist:
+        log(f"  full-width step {h['step']}: loss {h['loss']:.6f}, grad norm "
+            f"{h['grad_norm']:.6f}, lr {h['lr']:.3e}")
+    assert len(hist) == TRAIN_STEPS
+    assert all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist), hist
+    ocfg = OT.AdamWConfig(lr=1e-3, warmup_steps=min(20, TRAIN_STEPS // 5),
+                          total_steps=TRAIN_STEPS)
+    step = TT.make_train_step(cfg, ocfg, impl="naive")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)))
+             .to(DEV) for k in ("tokens", "labels")}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    step_s = float(np.mean(times))
+    prof, kernels = _device_profile("full-width train step", lambda attempt: step(params, state,
+                                                                                   batch))
+    share = "not measured"
+    if kernels:
+        busy = sum(e.self_device_time_total for e in kernels if e.key != "apply_updates")
+        opt = max((e.device_time_total for e in prof.key_averages() if e.key == "apply_updates"),
+                  default=0.0)
+        share = f"{opt / busy:.4f} ({opt / 1e3:.3f} of {busy / 1e3:.3f} ms device time)"
+    loss, grads = _grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    OT.apply_updates(params, grads, state, ocfg, decay=TT.decay_mask(params, cfg))
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t1
+    log(f"train: {TRAIN_STEPS} launcher steps in {wall:.3f} s; step time {step_s * 1e3:.3f} ms "
+        f"(host clock, synchronised, mean of 3: {[round(x * 1e3, 3) for x in times]}), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} tokens/s; peak memory {peak:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated over the launcher's run); apply_updates share of "
+        f"the step's device time (torch.profiler) {share}; apply_updates alone "
+        f"{opt_s * 1e3:.3f} ms (host clock, synchronised), {opt_s / step_s:.4f} of a step")
+    del params, state, grads, prof
+    return dict(step_ms=step_s * 1e3, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+                peak_gib=peak, opt_share=share, opt_ms=opt_s * 1e3)
+
+
+def _train_parity():
+    """One step of reduced f32 starcoder2-3b on the card and on the CPU from
+    the same params and batch: loss and gradients within 2e-4 (each leaf
+    against its largest gradient; TF32 is off)."""
+    cfg = configs.get_config(TRAIN_ARCH, reduced=True)
+    cpu = M.init(cfg, seed=0, device="cpu")
+    card = OT.tree_map(lambda p: p.to(DEV), cpu)
+    batch = TD.SyntheticStream(cfg, TD.DataConfig(seq_len=64, batch_size=4)).batch(0)
+    lc, gc_ = _grads(cpu, cfg, TD.to_device(batch, "cpu"))
+    lg, gg = _grads(card, cfg, TD.to_device(batch, DEV))
+    worst = max(float((g.cpu() - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                for g, c in zip(OT.tree_leaves(gg), OT.tree_leaves(gc_)))
+    log(f"train parity (reduced f32 {TRAIN_ARCH}, B 4 S 64): loss card {float(lg):.7f} cpu "
+        f"{float(lc):.7f}; largest gradient difference {worst:.3e} of the leaf's largest")
+    assert abs(float(lg) - float(lc)) < 2e-4 and worst < 2e-4, (float(lg), float(lc), worst)
+
+
+def _train_learning():
+    cfg = configs.get_config(TRAIN_ARCH, reduced=True)
+    stream = TD.SyntheticStream(cfg, TD.DataConfig(seq_len=64, batch_size=8))
+    t0 = time.perf_counter()
+    _, _, hist = TT.train_loop(cfg, stream, LEARN_STEPS, log_every=20, verbose=False,
+                               ocfg=OT.AdamWConfig(lr=1e-3, warmup_steps=10,
+                                                   total_steps=LEARN_STEPS), device=DEV)
+    log(f"train learning (reduced {TRAIN_ARCH}, {LEARN_STEPS} steps, B 8 S 64): losses "
+        f"{[round(h['loss'], 4) for h in hist]} in {time.perf_counter() - t0:.1f} s")
+    assert hist[-1]["loss"] < hist[0]["loss"] - 0.2, hist
+
+
+def _train_guard():
+    """Each kernel's wrapper refuses inputs that require grad on the card,
+    before launching."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+
+    def t(*shape):
+        return _randn(gen, shape, torch.float32).requires_grad_(True)
+    calls = {"flash_attention": lambda: ops.flash_attention(t(1, 8, 2, 32), t(1, 8, 2, 32),
+                                                            t(1, 8, 2, 32)),
+             "decode_attention": lambda: ops.decode_attention(
+                 t(1, 2, 32), t(1, 8, 2, 32), t(1, 8, 2, 32),
+                 torch.tensor([5], dtype=torch.int32, device=DEV)),
+             "ssd_scan": lambda: ops.ssd_scan(t(1, 16, 2, 16), torch.rand(1, 16, 2, device=DEV),
+                                              -torch.rand(2, device=DEV), t(1, 16, 1, 8),
+                                              t(1, 16, 1, 8), chunk=16)}
+    before = read_launches()
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            log(f"train guard: {name} refuses autograd on the card: {e}")
+        else:
+            raise AssertionError(f"{name} launched on inputs that require grad")
+    assert read_launches() == before
+
+
+def phase_train():
+    t0 = time.perf_counter()
+    out = _train_full_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_parity()
+    _train_learning()
+    _train_guard()
+    log(f"train phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -1733,7 +1992,9 @@ def main() -> int:
     phase_kernel_vs_naive(servers[0])
     pipe = phase_profile(servers[0])
     phase_planner(pipe)
+    phase_enum(pipe)
     phase_replay(pipe)
+    phase_predictor(pipe)
     del servers
     gc.collect()
     torch.cuda.empty_cache()
@@ -1759,6 +2020,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     w_launches = phase_whisper()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train()
     # each kernel's launches: the sum over the served paths' runs, each read
     # from zero just before its run and just after
     by_path = {"vlm-classify": launches, "mamba2": m_launches, "nlp-chain": n_launches,

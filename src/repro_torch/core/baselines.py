@@ -56,8 +56,8 @@ def fa2(pipe: PipelineModel, arrival: float, level: str = "low",
 
     ``solver`` names any ``optimizer.solve`` solver: ``vec`` (the float64
     broadcast hot path — default), ``brute`` (the plain-python oracle,
-    bit-identical to ``vec``), or ``enum`` (the float32 cross-check, not
-    ported yet: ROADMAP item 12)."""
+    bit-identical to ``vec``), or ``enum`` (the float32 torch cross-check,
+    on the card)."""
     variants = [s.lightest.name if level == "low" else s.heaviest.name
                 for s in pipe.stages]
     obj = OPT.Objective(alpha=0.0, beta=1.0, delta=1e-6, metric="pas")

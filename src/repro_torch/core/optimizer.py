@@ -13,9 +13,12 @@ a total-latency budget" — which we solve four ways:
     argmax tie-break).  Exact for the true multiplicative PAS and
     bit-identical to ``solve_brute`` by construction (same accumulation
     order, same tie-break) — this is the adaptation loop's hot path.
-  * ``solve_enum``  -- the reference's float32 vectorized enumeration,
-    kept there as a cross-check; not ported yet (ROADMAP item 12): here it
-    raises ``NotImplementedError``, and so does ``solve(solver="enum")``.
+  * ``solve_enum``  -- the same enumeration vectorized with torch on a
+    device (the card unless ``device`` says otherwise; radix-decoded combo
+    indices in chunks, feasibility-masked first-index argmax), kept as a
+    cross-check reference.  NOTE: it evaluates in float32, as the
+    reference's jnp does, so an *exact* objective tie can resolve to a
+    different (equal-valued) config than the float64 solvers.
   * ``solve_milp``  -- scipy HiGHS MILP (the Gurobi stand-in, §4.4) over
     binary x_{s,j}.  Exact for the *linear* accuracy metrics: PAS'
     (Appendix C) or log-PAS (a monotone surrogate of Eq. 8; exact tradeoff
@@ -432,16 +435,76 @@ def solve_vec(pipe: PipelineModel, arrival: float,
 
 
 # ---------------------------------------------------------------------------
-# exact enumeration (float32 cross-check reference): ROADMAP item 12
+# exact enumeration (torch -- float32 cross-check reference)
 # ---------------------------------------------------------------------------
 def solve_enum(pipe: PipelineModel, arrival: float, obj: Objective = Objective(),
                max_replicas: int = DEFAULT_MAX_REPLICAS,
                restrict_variants=None, fixed_replicas=None,
                chunk: int = 1 << 20,
-               latency_model: str = "worst_case") -> Solution:
-    raise NotImplementedError(
-        "solve_enum (the float32 enumeration cross-check) is not ported yet: "
-        "ROADMAP item 12; use solver='vec', 'brute' or 'milp'")
+               latency_model: str = "worst_case", device=None) -> Solution:
+    import torch
+
+    from repro_torch import device as D
+
+    dev = D.resolve(device)
+    t0 = time.perf_counter()
+    opts = [stage_options(s, arrival, max_replicas, latency_model)
+            for s in pipe.stages]
+    opts = _apply_restrictions(pipe, opts, restrict_variants, fixed_replicas,
+                               arrival)
+    S = len(opts)
+    J = max(len(o.names) for o in opts)
+
+    def pad(x, fill):
+        return np.stack([np.pad(np.asarray(x(o), np.float64),
+                                (0, J - len(o.names)),
+                                constant_values=fill) for o in opts])
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    acc_t = f32(pad(lambda o: _acc_term(o, obj.metric), 0.0))
+    lat = f32(pad(lambda o: o.lat, 1e18))
+    cost = f32(pad(lambda o: o.cost, 1e18))
+    bat = f32(pad(lambda o: o.batches.astype(np.float64), 1e18))
+    valid = torch.as_tensor(pad(lambda o: o.feasible.astype(np.float64), 0.0) > 0.5,
+                            device=dev)
+    sla = f32(pipe.sla)
+    K = J ** S
+    # int64 combo indices: the reference's int32 radix caps J ** S at 2^31
+    radix = torch.tensor([J ** s for s in range(S)], dtype=torch.int64, device=dev)
+    stage = torch.arange(S, device=dev)
+    path_idx = (None if pipe.is_chain
+                else [torch.tensor(p, dtype=torch.int64, device=dev)
+                      for p in pipe.paths()])
+
+    def eval_combos(ks):
+        js = (ks[:, None] // radix) % J                     # (n, S)
+        lat_k = lat[stage, js]
+        if path_idx is None:
+            lat_ok = lat_k.sum(-1) <= sla
+        else:                            # critical path: every path in SLA
+            lat_ok = torch.stack([lat_k[:, p].sum(-1) for p in path_idx],
+                                 dim=-1).le(sla).all(-1)
+        ok = valid[stage, js].all(-1) & lat_ok
+        a = acc_t[stage, js].sum(-1)
+        if obj.metric == "pas":
+            a = 100.0 * torch.exp(a)
+        score = obj.alpha * a - obj.beta * cost[stage, js].sum(-1) \
+            - obj.delta * bat[stage, js].sum(-1)
+        return torch.where(ok, score, -torch.inf)
+
+    best_k, best_v = -1, -np.inf
+    for start in range(0, K, chunk):
+        ks = torch.arange(start, min(start + chunk, K), dtype=torch.int64, device=dev)
+        vals = eval_combos(ks)
+        i = int(torch.argmax(vals))          # the first maximum, as argmax
+        if float(vals[i]) > best_v:
+            best_v, best_k = float(vals[i]), start + i
+    if not np.isfinite(best_v):
+        return _infeasible(t0, "enum")
+    picks = [(best_k // (J ** s)) % J for s in range(S)]
+    return _mk_solution(pipe, opts, picks, obj, arrival, t0, "enum")
 
 
 # ---------------------------------------------------------------------------

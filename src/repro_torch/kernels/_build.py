@@ -21,6 +21,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("flash_attention", "decode_attention", "ssd_scan")
@@ -94,6 +96,17 @@ def load(name: str) -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return _libs[name]
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise where autograd would record a kernel's call: the kernels have
+    no backward, and their outputs, written through ``ctypes``, would carry
+    no gradient.  The same on a CPU tensor, whose plain version could
+    differentiate, so that both devices behave alike."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: an input requires grad.  Train through "
+            "impl='naive' or impl='chunked', or call it under torch.no_grad()")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

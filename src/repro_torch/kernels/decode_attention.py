@@ -126,6 +126,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
     """q: (B, H, hd); caches: (B, L, KV, hd); lengths: (B,) int32 valid
     slots.  Returns (B, H, hd) in q's dtype."""
     _check(q, k_cache, v_cache, lengths)
+    _build.refuse_autograd("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":

@@ -122,6 +122,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     A CUDA tensor launches the tensor-core kernel for bf16 and the
     CUDA-core kernel for f32 (see the module's docstring), or raises."""
     _check(q, k, v, window)
+    _build.refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

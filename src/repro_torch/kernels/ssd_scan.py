@@ -188,6 +188,7 @@ def ssd_scan(x, dt, a_neg, b_mat, c_mat, *, chunk: int = 256, init_state=None):
 
     Returns (y (B, S, H, P) in x's dtype, final_state (B, H, P, N) f32)."""
     _check(x, dt, a_neg, b_mat, c_mat, chunk, init_state)
+    _build.refuse_autograd("ssd_scan", x, dt, a_neg, b_mat, c_mat, init_state)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a_neg, b_mat, c_mat, chunk, init_state)
     if x.device.type != "cuda":

@@ -7,8 +7,9 @@ variant/batch/replica decisions online (``replay``, which ``main`` calls),
 prints the replay's summary and serves a batch through the
 ``PipelineEngine``, as ``repro/launch/serve.py`` does.
 
-Demand is reactive (``run_trace`` with ``predictor=None``): the LSTM load
-predictor comes with ROADMAP item 11.  One card measures one replica, so
+Demand is reactive (``run_trace`` with ``predictor=None``), as in the
+reference's launcher; ``run_trace`` takes the LSTM of
+``repro_torch.core.predictor`` as ``predictor=``.  One card measures one replica, so
 every profiled latency is taken at R = 1 and R > 1 is modelled as
 l / R^0.75 (``core/profiler.py``).  The adapter's decisions drive its
 simulator, as in the reference; the engine keeps its first variants.

@@ -5,11 +5,15 @@ Functions take parameters as dictionaries of tensors, in the reference's
 layouts (``wq`` is (d, H, hd), ``wo`` is (H, hd, d)), and keep its numerics:
 RMS norm in f32 with the ``1 + scale`` form, half-split RoPE with f32
 angles, tanh-approximated GELU (``jax.nn.gelu``'s default) and the finite
-``-1e30`` mask.  Attention offers two implementations:
+``-1e30`` mask.  Attention offers three implementations:
 
-  * ``naive``  -- materializes the (S, S) score matrix (the oracle),
-  * ``kernel`` -- ``repro_torch.kernels.ops.flash_attention``: the CUDA
-                  kernel on the card, its plain version on the CPU.
+  * ``naive``   -- materializes the (S, S) score matrix (the oracle),
+  * ``chunked`` -- the reference's default: query chunks of
+                   ``DEFAULT_QUERY_CHUNK`` in a Python loop, each over the
+                   KV slab it can see, in plain PyTorch (trainable),
+  * ``kernel``  -- ``repro_torch.kernels.ops.flash_attention``: the CUDA
+                   kernel on the card, its plain version on the CPU.  It
+                   has no backward and refuses inputs that require grad.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
+DEFAULT_QUERY_CHUNK = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +136,38 @@ def attention_naive(q, k, v, q_pos, k_pos, window: Optional[int] = None,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
+def attention_chunked(q, k, v, q_pos, k_pos, window: Optional[int] = None,
+                      causal: bool = True, query_chunk: int = DEFAULT_QUERY_CHUNK):
+    """The reference's ``attention_chunked``: the queries in chunks of
+    ``query_chunk``, each chunk's scores and softmax over the keys it can
+    see.  For a causal window that is a KV slab of
+    ``((window + C + 127) // 128) * 128`` keys, so prefill costs
+    O(S * (C + W)) instead of O(S^2).  Falls back to the naive path when Sq
+    is not a multiple of the chunk or is one chunk."""
+    b, sq, hq, hd = q.shape
+    sk = k.shape[1]
+    if sq % query_chunk != 0 or sq == query_chunk:
+        return attention_naive(q, k, v, q_pos, k_pos, window, causal)
+    k = _repeat_kv(k, hq)
+    v = _repeat_kv(v, hq)
+    scale = 1.0 / hd ** 0.5
+    slab = sk
+    if window is not None and causal:
+        slab = min(sk, ((window + query_chunk + 127) // 128) * 128)
+    outs = []
+    for i in range(sq // query_chunk):
+        rows = slice(i * query_chunk, (i + 1) * query_chunk)
+        # chunk i covers queries [i*C, (i+1)*C); the first key it can see
+        start = min(max(i * query_chunk + query_chunk - slab, 0), sk - slab)
+        keys = slice(start, start + slab)
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, rows].float(), k[:, keys].float()) * scale
+        if causal:
+            s = s + _mask_bias(q_pos[:, rows], k_pos[:, keys], window)[:, None]
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v[:, keys]))
+    return torch.cat(outs, dim=1)
+
+
 def attention_decode(q, k_cache, v_cache, cache_len):
     """Single-token decode attention, the jnp path of the reference.
 
@@ -153,6 +190,8 @@ def attention_decode(q, k_cache, v_cache, cache_len):
 def attention(q, k, v, q_pos, k_pos, window=None, causal=True, impl="kernel"):
     if impl == "naive":
         return attention_naive(q, k, v, q_pos, k_pos, window, causal)
+    if impl == "chunked":
+        return attention_chunked(q, k, v, q_pos, k_pos, window, causal)
     if impl == "kernel":
         return ops.flash_attention(q, k, v, q_pos, k_pos, window=window, causal=causal)
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -18,8 +18,10 @@ encdec ``enc_stack`` and ``enc_norm``.  A layer's cache is ``{"k", "v"}``
 for attention, with the encoder's K/V ``{"xk", "xv"}`` (B, F, KV, hd) beside
 them in an enc-dec decoder, and ``{"conv", "state"}`` (the last
 ``d_conv - 1`` conv inputs in the model's type, the SSM state in f32) for
-Mamba2; ``impl`` picks the kernels or the naive paths of attention (the
-encoder's, the decoder's and the cross-attention alike) and the SSD scan,
+Mamba2; ``impl`` picks the kernels (``kernel``, serving's default; no
+backward), the naive paths or the reference's chunked attention
+(``chunked``, trainable) for attention (the encoder's, the decoder's and the
+cross-attention alike) and the SSD scan,
 and ``moe_impl`` the MoE dispatch (``einsum``, the reference's default, or
 ``gather``).  ``aux`` is the sum of the MoE layers' balancing losses, a 0-d
 f32 tensor that is zero for models without MoE.
@@ -92,15 +94,17 @@ def _encoder_output(params, cfg: ModelConfig, batch, impl):
     return encode(params, cfg, batch["frames"], impl=impl)
 
 
-def forward(params, cfg: ModelConfig, batch, *, impl="kernel", moe_impl="einsum"):
+def forward(params, cfg: ModelConfig, batch, *, impl="kernel", moe_impl="einsum",
+            remat=False):
     """Full-sequence forward; returns (the final-normed hidden states past
-    the prefix, aux)."""
+    the prefix, aux).  ``remat`` recomputes each decoder layer in the
+    backward pass."""
     enc_out = _encoder_output(params, cfg, batch, impl)
     x, n_prefix = _embed_with_prefix(params, cfg, batch)
     b, s = x.shape[:2]
     x, _, aux = ST.apply_stack(params["stack"], cfg, x, _positions(b, s, x.device),
                                impl=impl, moe_impl=moe_impl, enc_out=enc_out,
-                               mode="train")
+                               mode="train", remat=remat)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x[:, n_prefix:], aux
 

@@ -6,7 +6,8 @@
   * ``kernel`` -- ``repro_torch.kernels.ops.ssd_scan``: the CUDA kernel on
                   the card, its plain version on the CPU;
   * ``naive``  -- ``ssd_chunked``, the chunked algorithm in plain PyTorch
-                  (it is the kernel's plain version).
+                  (it is the kernel's plain version); ``chunked``, the
+                  reference's training default, runs it too.
 
 ``ssd_reference`` is the naive O(S) recurrence oracle.  ``mamba_decode``
 advances the state by one token in plain tensor code; the reference has no
@@ -126,7 +127,7 @@ def mamba_forward(params, x, d_model: int, scfg: SSMConfig, init_state=None,
         y, final = ops.ssd_scan(xh.contiguous(), dt, a_neg, bmat.contiguous(),
                                 cmat.contiguous(), chunk=scfg.chunk_size,
                                 init_state=init_state)
-    elif impl == "naive":
+    elif impl in ("naive", "chunked"):
         y, final = ssd_chunked(xh, dt, a_neg, bmat, cmat, scfg.chunk_size,
                                init_state=init_state)
     else:

@@ -20,6 +20,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -154,8 +155,11 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device, enc_len: int
 def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
                 impl="kernel", moe_impl="einsum", enc_out=None, cache=None,
                 cache_len=None, mode="train", capacity: Optional[int] = None):
-    """Returns (x, new_cache, aux).  ``impl`` picks the kernel or the naive
-    path of attention and of the SSD scan alike; ``moe_impl`` the MoE
+    """Returns (x, new_cache, aux).  ``impl`` picks the kernel, the naive or
+    the chunked path of attention (decode takes the naive path for
+    ``chunked``, as the reference's decode does), and the kernel or the
+    naive path of the SSD scan (``chunked`` runs the naive scan, which is
+    what the reference's ``mamba_forward`` runs); ``moe_impl`` the MoE
     dispatch; ``enc_out`` (B, F, d) is the encoder output that a
     cross-attention layer reads outside decode; aux is the MoE balancing
     loss (0-d f32), None for a layer without MoE (the reference's zero,
@@ -239,7 +243,7 @@ def _attn_decode(params, cfg, h, cache, cache_len: int, impl):
         lengths = torch.full((b,), min(cache_len + 1, cap), dtype=torch.int32,
                              device=h.device)
         o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)[:, None]
-    elif impl == "naive":
+    elif impl in ("naive", "chunked"):     # the reference decodes on its jnp path
         valid = torch.full((b,), cache_len + 1, dtype=torch.int32, device=h.device)
         o = L.attention_decode(q, cache["k"], cache["v"], valid)
     else:
@@ -257,7 +261,7 @@ def _cross_decode(params, h, cache, impl):
     lengths = torch.full((b,), f, dtype=torch.int32, device=h.device)
     if impl == "kernel":
         o = ops.decode_attention(q[:, 0], cache["xk"], cache["xv"], lengths)[:, None]
-    elif impl == "naive":
+    elif impl in ("naive", "chunked"):     # the reference decodes on its jnp path
         o = L.attention_decode(q, cache["xk"], cache["xv"], lengths)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
@@ -269,17 +273,23 @@ def _cross_decode(params, h, cache, impl):
 # ---------------------------------------------------------------------------
 def apply_stack(params, cfg: ModelConfig, x, positions, *, impl="kernel",
                 moe_impl="einsum", enc_out=None, caches=None, cache_len=None,
-                mode="train", capacity=None):
+                mode="train", capacity=None, remat=False):
     """Returns (x, new_caches, aux_total); new_caches is None in train mode.
     Decode takes its position from ``cache_len`` and ignores
-    ``positions``."""
+    ``positions``.  ``remat`` (train mode) recomputes each layer's
+    activations in the backward pass (``torch.utils.checkpoint`` per layer,
+    the reference's ``jax.checkpoint`` per block)."""
     new_caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, spec in enumerate(layer_specs(cfg)):
-        x, nc, a = layer_apply(params[j], cfg, spec, x, positions, impl=impl,
-                               moe_impl=moe_impl, enc_out=enc_out,
-                               cache=caches[j] if caches is not None else None,
-                               cache_len=cache_len, mode=mode, capacity=capacity)
+        kw = dict(impl=impl, moe_impl=moe_impl, enc_out=enc_out,
+                  cache=caches[j] if caches is not None else None,
+                  cache_len=cache_len, mode=mode, capacity=capacity)
+        if remat and mode == "train":
+            x, nc, a = checkpoint(layer_apply, params[j], cfg, spec, x, positions,
+                                  use_reentrant=False, **kw)
+        else:
+            x, nc, a = layer_apply(params[j], cfg, spec, x, positions, **kw)
         new_caches.append(nc)
         if a is not None:
             aux = aux + a

@@ -5,6 +5,7 @@ interval records, summaries, latency streams and rate arrays, bit for bit.
 Wall-clock fields (``solve_time``, ``solver_wall_s``, the cells' ``*wall_s``)
 are left out of every comparison."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -143,9 +144,19 @@ def test_run_trace_solver_override_as_the_reference(solver, excerpts):
     assert run(PORT) == run(REF)
 
 
-def test_enum_solver_override_raises_in_the_port(excerpts):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        TAD.run_trace(TPP.video(), excerpts[id(PORT)], policy="ipa", solver="enum")
+def test_enum_solver_override_as_the_reference(excerpts, monkeypatch):
+    """``solver="enum"``: the port's float32 torch enumeration on the CPU
+    (``solve`` looks ``solve_enum`` up when it is called, so the test hands
+    it the device) against the reference's jnp one."""
+    monkeypatch.setattr(TOPT, "solve_enum", functools.partial(TOPT.solve_enum, device="cpu"))
+
+    def run(m):
+        return trace_record(m["AD"].run_trace(
+            m["PP"].video(), excerpts[id(m)][:60], policy="ipa", seed=5,
+            solver="enum", interval=20.0))
+    got, want = run(PORT), run(REF)
+    assert got == want
+    assert len(got["intervals"]) == 3
 
 
 # ---------------------------------------------------------------------------

@@ -500,3 +500,103 @@ def test_moe_einsum_and_gather_dispatch_agree_at_full_width():
     assert y1.dtype == torch.bfloat16 and torch.isfinite(y1.float()).all()
     _close(y1, y2, torch.bfloat16)
     _close(a1, a2, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# training, the LSTM predictor and solve_enum on the card
+# ---------------------------------------------------------------------------
+def _train_step_on(device, arch="starcoder2-3b"):
+    """One AdamW step of reduced f32 ``arch`` from the seed-0 params of the
+    CPU on ``device``: (loss, grad norm, grads and params after, on the CPU)."""
+    from repro_torch.training import data, optim
+    from repro_torch.training import train as T
+    cfg = configs.get_config(arch, reduced=True)
+    params = optim.tree_map(lambda p: p.to(device), M.init(cfg, seed=0, device="cpu"))
+    batch = data.to_device(data.SyntheticStream(cfg, data.DataConfig(seq_len=32, batch_size=2))
+                           .batch(0), device)
+    leaves = optim.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = T.loss_fn(params, cfg, batch, impl="naive")
+    grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    for p in leaves:
+        p.requires_grad_(False)
+    step = T.make_train_step(cfg, optim.AdamWConfig(total_steps=10), impl="naive")
+    params, _, m = step(params, optim.init_state(params), batch)
+    return (float(loss.detach()), float(m["grad_norm"]), grads,
+            [p.cpu() for p in optim.tree_leaves(params)])
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "qwen2-moe-a2.7b", "mamba2-2.7b"])
+def test_train_step_on_the_card_matches_the_cpu(arch):
+    """Loss and gradients within 2e-4 (each leaf against its largest
+    gradient); the step's params are not compared element by element, since
+    AdamW's first step moves each by lr * sign(g)."""
+    _need_cuda()
+    loss_c, norm_c, grads_c, _ = _train_step_on("cpu", arch)
+    loss_g, norm_g, grads_g, params_g = _train_step_on("cuda", arch)
+    assert abs(loss_g - loss_c) < 2e-4
+    assert norm_g == pytest.approx(norm_c, rel=2e-4)
+    for g, c in zip(grads_g, grads_c):
+        assert float((g - c).abs().max()) <= 2e-4 * max(float(c.abs().max()), 1e-30)
+    assert all(torch.isfinite(p).all() for p in params_g)
+
+
+def test_kernels_refuse_autograd_on_the_card():
+    _need_cuda()
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build
+
+    def t(*shape, dtype=torch.float32):
+        return _randn(sum(shape), shape, dtype).requires_grad_(True)
+    calls = {"flash_attention": lambda: ops.flash_attention(t(1, 8, 2, 32), t(1, 8, 2, 32),
+                                                            t(1, 8, 2, 32)),
+             "decode_attention": lambda: ops.decode_attention(
+                 t(1, 2, 32), t(1, 8, 2, 32), t(1, 8, 2, 32),
+                 torch.tensor([5], dtype=torch.int32, device="cuda")),
+             "ssd_scan": lambda: ops.ssd_scan(t(1, 16, 2, 16), torch.rand(1, 16, 2, device="cuda"),
+                                              -torch.rand(2, device="cuda"), t(1, 16, 1, 8),
+                                              t(1, 16, 1, 8), chunk=16)}
+    counts = (K1.flash_attention.launches, K2.decode_attention.launches, K3.ssd_scan.launches)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="impl='naive' or impl='chunked'"):
+            call()
+    assert (K1.flash_attention.launches, K2.decode_attention.launches,
+            K3.ssd_scan.launches) == counts
+    assert _build.refuse_autograd("x", torch.zeros(1, device="cuda")) is None
+
+
+def test_lstm_on_the_card_matches_the_cpu():
+    _need_cuda()
+    from repro_torch.core import predictor as PR
+    params = PR.init_lstm(torch.Generator().manual_seed(0))
+    x = np.random.default_rng(3).standard_normal((64, PR.HISTORY)).astype(np.float32)
+    want = PR.lstm_apply(params, torch.from_numpy(x))
+    got = PR.lstm_apply({k: v.cuda() for k, v in params.items()}, torch.from_numpy(x).cuda())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_solve_enum_on_the_card_matches_brute(seed):
+    _need_cuda()
+    from repro_torch.core import optimizer as OPT
+    from repro_torch.core import pipeline as P
+    rng = np.random.default_rng(seed)
+    stages = []
+    for s in range(int(rng.integers(1, 4))):
+        variants = []
+        for v in range(int(rng.integers(1, 4))):
+            l1 = float(rng.uniform(0.01, 0.4))
+            variants.append(P.ModelVariant(name=f"s{s}v{v}", accuracy=float(rng.uniform(30, 95)),
+                                           base_alloc=int(rng.choice([1, 2, 4, 8])),
+                                           latency_coeffs=(l1 * 0.001, l1 * 0.6, l1 * 0.4)))
+        sla = float(5.0 * np.mean([v.latency(1) for v in variants]))
+        stages.append(P.StageModel(f"stage{s}", tuple(variants), sla, batch_choices=(1, 2, 4, 8)))
+    pipe = P.PipelineModel("rand", tuple(stages))
+    obj = OPT.Objective(alpha=2.0, beta=0.7, delta=1e-5, metric="pas")
+    for lam in (0.5, 9.0, 55.0):
+        e, b = OPT.solve_enum(pipe, lam, obj), OPT.solve_brute(pipe, lam, obj)
+        assert e.feasible == b.feasible
+        if b.feasible:
+            assert e.objective == pytest.approx(b.objective, rel=1e-9)
+            assert OPT.solve_enum(pipe, lam, obj, device="cpu").config == e.config

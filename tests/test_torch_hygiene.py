@@ -13,11 +13,17 @@ import pytest
 import torch
 
 from repro_torch import configs as TC
-from repro_torch.examples import serve_pipeline
+from repro_torch.core import optimizer as TOPT
+from repro_torch.core import paper_profiles as TPP
+from repro_torch.core import predictor as TPR
+from repro_torch.examples import serve_pipeline, train_variant
 from repro_torch.launch import serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import convert
 from repro_torch.models import model as TM
 from repro_torch.serving.engine import StageServer
+from repro_torch.training import checkpoint, data
+from repro_torch.training.train import train_loop
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -28,7 +34,7 @@ FOREIGN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 CONTROL_PLANE = tuple(f"repro_torch.{m}" for m in (
     "core.accuracy", "core.trace", "core.cluster", "core.paper_profiles", "core.optimizer",
     "core.baselines", "core.simulator", "core.simulator_legacy", "core.adapter",
-    "serving.request", "serving.batching"))
+    "core.study", "serving.request", "serving.batching"))
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +43,10 @@ def blocked_import():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.kernels, repro_torch.models, "
             "repro_torch.models.moe, repro_torch.serving, repro_torch.core, "
-            "repro_torch.launch.serve, repro_torch.examples.serve_pipeline\n"
+            "repro_torch.launch.serve, repro_torch.examples.serve_pipeline, "
+            "repro_torch.training, repro_torch.training.checkpoint, "
+            "repro_torch.core.predictor, repro_torch.launch.train, "
+            "repro_torch.examples.train_variant\n"
             f"import {', '.join(CONTROL_PLANE)}\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m, v in sys.modules.items() if v is not None)\n")
@@ -58,9 +67,10 @@ def test_no_jax_or_reference_imports(path):
 
 
 def _code_only(path, rename=False):
-    """The module's AST without docstrings, with ``solve_enum``'s body
-    emptied (ROADMAP item 12) and, for a reference module, its ``repro.``
-    imports renamed to ``repro_torch.``."""
+    """The module's AST without docstrings, with ``solve_enum``'s signature
+    and body emptied (the port writes it in torch, with a ``device``) and,
+    for a reference module, its ``repro.`` imports renamed to
+    ``repro_torch.``."""
     text = path.read_text()
     if rename:
         text = re.sub(r"^(\s*)(from|import) repro\.", r"\1\2 repro_torch.", text, flags=re.M)
@@ -73,6 +83,8 @@ def _code_only(path, rename=False):
                     and isinstance(body[0].value.value, str):
                 node.body = body[1:] or [ast.Pass()]
             if getattr(node, "name", None) == "solve_enum":
+                node.args = ast.arguments(posonlyargs=[], args=[], kwonlyargs=[],
+                                          kw_defaults=[], defaults=[])
                 node.body = [ast.Pass()]
     return ast.dump(tree)
 
@@ -82,7 +94,7 @@ def _code_only(path, rename=False):
                          + ["core/pipeline", "core/queueing", "core/profiler"])
 def test_control_plane_is_the_reference_code(module):
     """With the imports renamed, a copied module differs from the reference
-    only in docstrings, comments and ``solve_enum``'s body."""
+    only in docstrings, comments and ``solve_enum``."""
     ref = ROOT / "src" / "repro" / f"{module}.py"
     assert _code_only(PORT / f"{module}.py") == _code_only(ref, rename=True)
 
@@ -123,6 +135,24 @@ def test_entry_points_without_a_device_raise_when_cuda_is_absent(no_cuda):
                            "rem": ()}}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.params_from_jax(params_np, cfg)
+
+
+def test_training_entry_points_without_a_device_raise_when_cuda_is_absent(no_cuda, tmp_path):
+    """The launcher, the example, the train loop, checkpoint loading, the
+    LSTM predictor and ``solve_enum`` ask for the card unless told
+    otherwise."""
+    cfg = TC.get_config("starcoder2-3b", reduced=True)
+    stream = data.SyntheticStream(cfg, data.DataConfig(seq_len=8, batch_size=1))
+    calls = [lambda: launch_train.main(["--arch", "starcoder2-3b", "--reduced", "--steps", "1"]),
+             lambda: train_variant.main(["--steps", "1"]),
+             lambda: train_loop(cfg, stream, 1, verbose=False),
+             lambda: checkpoint.load(str(tmp_path / "none.npz"), cfg),
+             lambda: TPR.LSTMPredictor.train(np.ones(400, np.float32), steps=1),
+             lambda: TPR.lstm_params_from_jax({"w_h": np.zeros((2, 8), np.float32)}),
+             lambda: TOPT.solve_enum(TPP.video(), 5.0)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 @pytest.mark.parametrize("entry", [serve.main, serve_pipeline.main],

@@ -3,8 +3,10 @@ cluster) is a copy of the reference's numpy code and must decide exactly as
 it does: the same config and the same objective, PAS, cost and latency
 floats, on the same inputs.  Every scenario is built twice, once from each
 package's own classes; only plain values are compared.  ``solve_enum`` is
-the one part left out of the copy (ROADMAP item 12)."""
+the one part written anew (in torch, float32 as the reference's jnp): its
+picks must be the reference's."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -287,13 +289,78 @@ def test_pareto_frontier_and_cache_as_the_reference(seed):
 
 
 # ---------------------------------------------------------------------------
-# the one solver left out
+# solve_enum: the float32 enumeration, in torch on a device (the CPU here)
 # ---------------------------------------------------------------------------
-def test_enum_solver_is_not_ported_and_says_where_it_is_queued():
+def _enum(m, pipe, lam, obj, **kw):
+    if m is PORT:
+        kw["device"] = "cpu"
+    return m["OPT"].solve_enum(pipe, lam, obj, **kw)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("seed", range(4))
+def test_enum_picks_as_the_reference(seed, metric):
+    """``tests/test_optimizer.py::test_enum_matches_brute_oracle``'s random
+    pipelines: the port's picks are the reference's, and its objective is
+    the port's ``solve_brute``'s."""
+    rates = (0.5, 9.0, 55.0)
+
+    def run(m):
+        pipe = random_pipeline(m, 300 + seed)
+        obj = m["OPT"].Objective(alpha=2.0, beta=0.7, delta=1e-5, metric=metric)
+        return [plain(_enum(m, pipe, lam, obj)) for lam in rates]
+    want, got = _both(run)
+    assert got == want
+    pipe = random_pipeline(PORT, 300 + seed)
+    obj = TOPT.Objective(alpha=2.0, beta=0.7, delta=1e-5, metric=metric)
+    for lam, e in zip(rates, got):
+        b = TOPT.solve_brute(pipe, lam, obj)
+        assert e["feasible"] == b.feasible
+        if b.feasible:
+            assert e["objective"] == pytest.approx(b.objective, rel=1e-9)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_enum_dag_pipelines_pick_as_the_reference(seed):
+    """Fan-out / join pipelines: latency holds on every path."""
+    def run(m):
+        pipe = random_pipeline(m, 100 + seed, n_stages=4, n_variants=2, dag=True)
+        obj = m["OPT"].Objective(alpha=2.0, beta=0.3, delta=1e-5)
+        return [plain(_enum(m, pipe, lam, obj)) for lam in (1.0, 8.0, 25.0)]
+    want, got = _both(run)
+    assert got == want
+    assert any(s["feasible"] for s in got)
+
+
+def test_enum_presets_pick_as_the_reference():
+    """The video preset of ``tests/test_optimizer.py``'s replica, alpha and
+    beta tests, and the impossible SLA of its infeasibility test."""
+    def run(m):
+        pipe = m["PP"].video()
+        out = [plain(_enum(m, pipe, 20.0, m["OPT"].Objective()))]
+        out += [plain(_enum(m, pipe, 15.0, m["OPT"].Objective(alpha=a, beta=1.0)))
+                for a in (0.1, 100.0)]
+        out += [plain(_enum(m, pipe, 15.0, m["OPT"].Objective(alpha=1.0, beta=b)))
+                for b in (0.01, 10.0)]
+        rand = random_pipeline(m, 1)
+        tight = m["P"].PipelineModel(rand.name, tuple(
+            m["P"].StageModel(s.name, s.variants, sla=1e-6, batch_choices=s.batch_choices)
+            for s in rand.stages))
+        out.append(plain(_enum(m, tight, 5.0, m["OPT"].Objective())))
+        return out
+    want, got = _both(run)
+    assert got == want
+    assert all(s["feasible"] for s in got[:-1]) and not got[-1]["feasible"]
+
+
+def test_enum_through_solve_and_fa2(monkeypatch):
+    """``solve(solver="enum")`` and ``fa2(..., solver="enum")`` reach the
+    port's ``solve_enum``, which ``solve`` looks up when it is called."""
     pipe = random_pipeline(PORT, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        TOPT.solve_enum(pipe, 5.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        TOPT.solve(pipe, 5.0, solver="enum")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        TBL.fa2(pipe, 5.0, "low", solver="enum")
+    on_cpu = functools.partial(TOPT.solve_enum, device="cpu")
+    obj = TOPT.Objective()
+    want = plain(on_cpu(pipe, 5.0, obj))
+    monkeypatch.setattr(TOPT, "solve_enum", on_cpu)
+    assert plain(TOPT.solve(pipe, 5.0, obj, solver="enum")) == want
+    low = plain(TBL.fa2(pipe, 5.0, "low", solver="enum"))
+    assert low == plain(TBL.fa2(pipe, 5.0, "low", solver="vec")) | {"solver": "enum"}
