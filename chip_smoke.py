@@ -87,14 +87,24 @@ Phases, each of which fails the script if it fails:
    and at most persistence + 1), then Fig. 16's ablation (``run_trace``
    under ``ipa`` with reactive, LSTM and oracle demand) on the paper's
    video pipeline and on the card-profiled vlm-classify pipeline;
-13. train (last): starcoder2-3b at its published config through the
+13. train: starcoder2-3b at its published config through the
    training launcher (``launch.train.main``, 5 steps at B 8, S 128, naive
    attention), each step's loss and grad norm finite, then its step time,
    tokens/s, peak memory and the optimizer's share of the step's device
    time (torch.profiler); one reduced f32 step on the card against the CPU
    (loss and gradients within 2e-4); the reference's learning check (120
    steps of reduced starcoder2-3b, the loss down by more than 0.2); and
-   each kernel refusing inputs that require grad, before launching.
+   each kernel refusing inputs that require grad, before launching;
+14. dryrun (last): the port's dry run (``repro_torch.launch.dryrun``'s
+   ``main`` with ``--all``, on meta tensors, after the timed phases) over
+   every architecture x input shape pair on the 16x16 production mesh, all
+   35 ok; yi-34b x decode_32k's 1- and 2-block probes
+   (B 128, a 32768-slot cache, full width) built for real on the card and
+   run with K2 over every slot: the allocator's bytes for their arguments
+   against the dry run's count, the step's peak over them, and the device
+   time a block beside the dry run's counted_memory_s for one block; then the
+   ``adaptability`` example on the card, line for line as on the CPU, and
+   ``quickstart``.  Phase 3 also times K2 at that probe's shape.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -103,12 +113,16 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
+import io
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -118,7 +132,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import baselines as BL  # noqa: E402
@@ -133,9 +148,12 @@ from repro_torch.core import adapter as AD  # noqa: E402
 from repro_torch.core import paper_profiles as PP  # noqa: E402
 from repro_torch.core import predictor as PR  # noqa: E402
 from repro_torch.core import trace as TR  # noqa: E402
+from repro_torch.examples import adaptability, quickstart  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.launch.serve import build_pipeline  # noqa: E402
+from repro_torch.launch.mesh import MeshShape  # noqa: E402
 from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MO  # noqa: E402
@@ -746,6 +764,8 @@ def phase_timing():
                                                f32_ms=ms32, device_ms=dev, f32_device_ms=dev32,
                                                library_device_ms=dev_lib)
         _k2_split_sweep(label, q, k, v, lens)
+    del q, k, v, lens, sets
+    out[("decode_attention", K2_DRYRUN[0])] = _k2_dryrun_shape(gen)
     # SSD scan: the mamba2-2.7b prefill of the serve phase, the 8-token prompt
     # nlp-chain hands its third stage, and jamba's mixer (N 16)
     log("time K3: no single PyTorch call computes the SSD scan, so it has no "
@@ -776,16 +796,89 @@ def phase_timing():
     return out
 
 
-def _k2_split_sweep(label, q, k, v, lens, reps=20):
+# K2 at the dry run's card probe (yi-34b x decode_32k): B 128, every one of
+# 32768 slots valid: (label, B, H, KV, hd, L)
+K2_DRYRUN = ("yi-34b decode_32k", 128, 56, 8, 128, 32768)
+# the plain version repeats K and V over each GQA group in f32: 120 GB for
+# the whole batch at once, so it runs on slices of this many requests
+PLAIN_SLICE = 8
+# Over 32768 valid slots with unit-normal q, k and v the outputs are about
+# N(0, 0.009), at most ~0.05, so TOL's 2e-2 would pass a kernel that dropped
+# a fifth of the cache.  rtol 2e-2 covers bf16's rounding of the output (one
+# ulp is 2**-7 of it); atol 5e-4 is twice an ulp at the largest output.  A
+# kernel that skips the last 64-slot tile (one split of the finest plan)
+# is off by up to ~7e-3 and fails it; the phase checks that it does.
+K2_DRYRUN_TOL = dict(atol=5e-4, rtol=2e-2)
+
+
+def sdpa_decode_full(q, k, v, lengths):
+    """SDPA over every slot (each request's length is the cache's): no
+    mask, so a fused backend takes it, the math backend (which would repeat
+    K and V over the groups) excluded."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        return F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2),
+                                              v.transpose(1, 2), enable_gqa=True)[:, :, 0]
+
+
+def _k2_dryrun_shape(gen):
+    """K2 against its plain version (on slices of the batch), timed beside
+    its bound and SDPA, at the dry run's probe shape; one set of inputs
+    (17 GB) is far past the 50 MB L2."""
+    label, b, h, kv, hd, L = K2_DRYRUN
+    bf = torch.bfloat16
+    q = _randn(gen, (b, h, hd), bf)
+    k, v = _randn(gen, (b, L, kv, hd), bf), _randn(gen, (b, L, kv, hd), bf)
+    lens = torch.full((b,), L, dtype=torch.int32, device=DEV)
+    sets = [(q, k, v, lens)]
+
+    def plain(q, k, v, lens):
+        return torch.cat([K2.decode_attention_plain(q[i:i + PLAIN_SLICE], k[i:i + PLAIN_SLICE],
+                                                    v[i:i + PLAIN_SLICE],
+                                                    lens[i:i + PLAIN_SLICE])
+                          for i in range(0, b, PLAIN_SLICE)])
+    got, want = K2.decode_attention(q, k, v, lens).float(), plain(q, k, v, lens).float()
+    err = (got - want).abs().max().item()
+    assert torch.allclose(got, want, **K2_DRYRUN_TOL), (label, err)
+    # the tolerance tells the kernel from one that skips the last tile
+    short = K2.decode_attention(q, k, v, lens - K2.SPLIT_SLOTS).float()
+    short_err = (short - want).abs().max().item()
+    assert not torch.allclose(short, want, **K2_DRYRUN_TOL), (label, short_err)
+    lib_err = (sdpa_decode_full(q, k, v, lens).float() - want).abs().max().item()
+    del got, short
+    ms = cuda_ms(K2.decode_attention, sets, iters=20)
+    plain_ms = cuda_ms(plain, sets, iters=3)
+    lib = cuda_ms(sdpa_decode_full, sets, iters=20)
+    bound, by = decode_bound(h, kv, hd, L, [L] * b, bf)
+    dev, _ = _log_device_kernels(f"K2 {label} bf16", K2.decode_attention, q, k, v, lens)
+    dev_lib, names = _log_device_kernels(f"SDPA {label} bf16", sdpa_decode_full, q, k, v, lens)
+    log(f"time K2 {label} B={b} L={L} lengths={L} H={h} KV={kv} hd={hd} bf16: kernel "
+        f"{ms:.4f} ms (device {dev:.4f}), plain {plain_ms:.4f} ms ({b // PLAIN_SLICE} slices "
+        f"of {PLAIN_SLICE}), sdpa {lib:.4f} ms (device {dev_lib:.4f}, {sdpa_backend(names)} "
+        f"backend, no mask, max abs err vs plain {lib_err:.3e}), bound {bound:.4f} ms ({by}); "
+        f"max abs err {err:.3e} (atol {K2_DRYRUN_TOL['atol']}, rtol {K2_DRYRUN_TOL['rtol']}; "
+        f"the last {K2.SPLIT_SLOTS} slots skipped: {short_err:.3e}, out of it); "
+        f"f32 not timed at this shape (34 GB more)")
+    _k2_split_sweep(label, q, k, v, lens, want=want, tol=K2_DRYRUN_TOL)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound, bound_by=by,
+                max_abs_err=err, device_ms=dev, library_device_ms=dev_lib,
+                library_backend=sdpa_backend(names))
+
+
+def _k2_split_sweep(label, q, k, v, lens, reps=20, want=None, tol=None):
     """K2's device time a launch with the cache cut into other numbers of
     splits than ``split_plan``'s, through the library's C entry (the
     wrapper takes no other): the evidence for the split rule.  Each output
-    is held against the plain version first."""
+    is held against the plain version (``want``, computed here by default)
+    first, within ``tol`` (TOL of the dtype by default)."""
     lib, fn = K2._function()
     b, h, hd = q.shape
     L, kv = k.shape[1], k.shape[2]
     tiles = -(-L // K2.SPLIT_SLOTS)
-    want = K2.decode_attention_plain(q, k, v, lens).float()
+    if want is None:
+        want = K2.decode_attention_plain(q, k, v, lens).float()
+    tol = tol or dict(atol=TOL[q.dtype], rtol=TOL[q.dtype])
     times = {}
     for ask in (1, 2, 3, 5, 9, tiles):
         per = -(-tiles // min(ask, tiles))
@@ -801,7 +894,7 @@ def _k2_split_sweep(label, q, k, v, lens, reps=20):
                 torch.cuda.current_stream().cuda_stream)
         _build.check(lib, fn(*args), "decode_attention")
         torch.cuda.synchronize()
-        assert torch.allclose(o.float(), want, atol=TOL[q.dtype], rtol=TOL[q.dtype]), splits
+        assert torch.allclose(o.float(), want, **tol), splits
         _, kernels = _device_profile(f"K2 split sweep {label} {splits} splits",
                                      lambda _: [fn(*args) for _ in range(reps)],
                                      lambda ks: sum(e.count for e in ks) == reps)
@@ -1980,6 +2073,173 @@ def phase_train():
     return out
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the meta-tensor dry run, its count held against the card, and the
+# control-plane examples on the card
+# ---------------------------------------------------------------------------
+SWEEP_DIR = ROOT / "build" / "chip_smoke_dryrun"
+PROBE_ARCH, PROBE_SHAPE = "yi-34b", "decode_32k"
+# PyTorch's caching allocator rounds a block up to 512 bytes, keeps a large
+# block whole where splitting it would leave at most 1 MiB, and rounds a
+# new segment up to 2 MiB: a tensor may hold up to 2 MiB more than its bytes
+ALLOC_SLACK = 2 << 20
+# the decode step's transients: one token's activations, the logits (B x V
+# in bf16, 16 MB at yi-34b) and K2's split workspace; keeping a copy of one
+# layer's cache would add 16 GiB
+PEAK_OVER_ARGS = 1 << 30
+
+
+def _dryrun_sweep():
+    """Every dry-run pair on the 16x16 production mesh (``dryrun --all``,
+    meta tensors only, the card untouched), each case's record read back
+    from the sweep's output."""
+    t0 = time.perf_counter()
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = DR.main(["--all", "--out", str(SWEEP_DIR)])     # 1: some case failed
+    out = buf.getvalue()
+    pairs = configs.all_dryrun_pairs()
+    recs = [json.loads((SWEEP_DIR / f"{a}__{s.name}__singlepod__einsum.json").read_text())
+            for a, s in pairs]
+    for r in recs:
+        if not r["ok"]:
+            log(f"dryrun {r['arch']} x {r['shape']} FAILED: {r['error']}\n{r['traceback']}")
+            continue
+        log(f"dryrun {r['arch']} x {r['shape']} ({r['mesh']}): {r['params'] / 1e9:.3f} B "
+            f"params, arguments {r['mem']['argument_gb']:.4f} GiB a device, counted "
+            f"{r['counted_flops_per_dev']:.4e} FLOP a device (model "
+            f"{r['model_flops_per_dev']:.4e}), compute_s {r['compute_s']:.4e}, "
+            f"counted_memory_s {r['counted_memory_s']:.4e}: {r['counted_bottleneck']}-bound "
+            f"by the counts ({r['total_s']} s)")
+    n_ok = sum(r["ok"] for r in recs)
+    log(f"dryrun sweep: {out.strip().splitlines()[-1]}, exit {rc}; "
+        f"{sum(r['total_s'] for r in recs):.1f} s of cases, {time.perf_counter() - t0:.1f} s "
+        f"in all (counts on meta tensors over NVIDIA's data-sheet peaks)")
+    assert rc == 0 and n_ok == len(pairs) == 35, (rc, n_ok)
+    return recs
+
+
+def _probe_on_card(k, shape, mesh):
+    """The k-block probe of yi-34b x decode_32k built on the card with K2 on
+    its path: the allocator's bytes for its arguments against the dry run's
+    count, the step's peak over them, its device time."""
+    cfg = DR._probe_cfg(configs.get_config(PROBE_ARCH), k)
+    meta = DR.build_case(cfg, shape, mesh)
+    count = DR.sharded_bytes(meta.arg_shapes, meta.arg_specs, mesh)
+    _, counted_bytes = DR.count(meta)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    case = DR.build_case(cfg, shape, mesh, impl="kernel", device=DEV)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated() - base
+    leaves = OT.tree_leaves(case.args)
+    storage = sum(t.untyped_storage().nbytes() for t in leaves)
+    kv = sum(t.untyped_storage().nbytes() for c in case.args[1] for t in c.values())
+    emb = case.args[0]["embed"].untyped_storage().nbytes()
+    layers = sum(t.untyped_storage().nbytes() for t in OT.tree_leaves(case.args[0]["stack"]))
+    log(f"dryrun probe {k} block(s) of {PROBE_ARCH} x {PROBE_SHAPE} on the card: dry-run "
+        f"arguments {count / 2**30:.4f} GiB ({count} B: KV cache {kv / 2**30:.4f}, embedding "
+        f"{emb / 2**30:.4f}, layer weights {layers / 2**30:.4f}); tensors "
+        f"{storage} B; allocator {alloc} B ({len(leaves)} tensors, {alloc - storage} B over)")
+    # the count holds the reference's int32 position argument, which the
+    # port passes as a Python int
+    assert storage == count - 4, (storage, count)
+    assert 0 <= alloc - storage <= ALLOC_SLACK * len(leaves), (alloc, storage)
+    with torch.no_grad():
+        logits, _ = case.fn(*case.args)               # first use: cuBLAS handles
+        del logits
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        logits, _ = case.fn(*case.args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() - base - alloc
+        assert logits.shape == (shape.global_batch, cfg.vocab) and bool(
+            torch.isfinite(logits.float()).all())
+        del logits
+        step_ms, source = _step_device_ms(f"dryrun probe {k} block(s)", case, k)
+    log(f"dryrun probe {k}: peak over the arguments {peak / 2**20:.1f} MiB (limit "
+        f"{PEAK_OVER_ARGS >> 20} MiB); launches {launches}; device time a step "
+        f"{step_ms:.4f} ms ({source}); dry-run counted bytes {counted_bytes:.4e}")
+    assert peak <= PEAK_OVER_ARGS, peak
+    assert launches["decode_attention"] == k, launches
+    del case
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(argument_bytes=count, allocator_bytes=alloc, peak_over_args=peak,
+                step_ms=step_ms, source=source, counted_bytes=counted_bytes, launches=launches)
+
+
+def _step_device_ms(label, case, k2_per_step, reps=3):
+    """A step's device time: the device kernels ``torch.profiler`` records
+    over ``reps`` steps, in a window that recorded K2 ``k2_per_step`` times
+    a step (up to PROFILE_TRIES windows of the same size; a window's kernels
+    are not a whole number a step: on the H100 two more each window); where
+    none does, CUDA events over ``reps`` steps (launch gaps included), and
+    the source says so."""
+    def run(_):
+        for _ in range(reps):
+            case.fn(*case.args)
+
+    def complete(kernels):
+        return sum(e.count for e in kernels if "decode_split" in e.key) == k2_per_step * reps
+    _, kernels = _device_profile(label, run, complete)
+    if kernels:
+        return sum(e.self_device_time_total for e in kernels) / 1e3 / reps, "torch.profiler"
+    return (cuda_ms(lambda *a: case.fn(*a), [case.args], iters=reps),
+            "CUDA events: no complete profiler window")
+
+
+def _printed(main, argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue().splitlines()
+
+
+def phase_dryrun():
+    """The dry run's sweep over every pair on the production mesh (all ok),
+    run here after the timed phases, then the yi-34b decode_32k probes on a
+    1x1 mesh built for real on the card with K2 on their path (B 128 over
+    32768 of 32768 slots): the
+    allocator's bytes for the arguments within ALLOC_SLACK a tensor of the
+    count, the step's peak at most PEAK_OVER_ARGS past them, and the device
+    time a block beside the dry run's counted_memory_s for one block; then
+    ``adaptability`` on the card line for line as with ``--device cpu``, and
+    ``quickstart``."""
+    t0 = time.perf_counter()
+    _dryrun_sweep()
+    shape = configs.INPUT_SHAPES[PROBE_SHAPE]
+    mesh = MeshShape(("data", "model"), (1, 1))
+    probes = {k: _probe_on_card(k, shape, mesh) for k in (1, 2)}
+    block_ms = probes[2]["step_ms"] - probes[1]["step_ms"]
+    block_bytes = probes[2]["counted_bytes"] - probes[1]["counted_bytes"]
+    kv_block = 2 * shape.global_batch * shape.seq_len * 8 * 128 * 2
+    log(f"dryrun: {PROBE_ARCH} x {PROBE_SHAPE}, one block: the card's device time "
+        f"{block_ms:.4f} ms (2-block minus 1-block step; {probes[1]['source']}, "
+        f"{probes[2]['source']}); the dry run's counted_memory_s "
+        f"{block_bytes / DR.HBM_BW * 1e3:.4f} ms ({block_bytes:.4e} counted bytes of the "
+        f"chunked path on meta, over {DR.HBM_BW:.3g} B/s); K2's bound on its "
+        f"{kv_block / 1e9:.2f} GB of K and V {kv_block / PEAK_BYTES * 1e3:.4f} ms")
+    t1 = time.perf_counter()
+    card = _printed(adaptability.main, [])
+    cpu = _printed(adaptability.main, ["--device", "cpu"])
+    for line in card:
+        log(f"  adaptability (card): {line}")
+    assert card == cpu and len(card) == 16, (card, cpu)
+    log(f"adaptability: the card's table equals the CPU's, {len(card)} lines "
+        f"({time.perf_counter() - t1:.1f} s both)")
+    lines = _printed(quickstart.main, [])
+    for line in lines[-4:]:
+        log(f"  quickstart: {line}")
+    log(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
+    return {name: sum(p["launches"][name] for p in probes.values())
+            for name in ("flash_attention", "decode_attention", "ssd_scan")}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -2023,10 +2283,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train()
-    # each kernel's launches: the sum over the served paths' runs, each read
-    # from zero just before its run and just after
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_launches = phase_dryrun()
+    # each kernel's launches: the sum over the paths' runs, each read from
+    # zero just before its run and just after
     by_path = {"vlm-classify": launches, "mamba2": m_launches, "nlp-chain": n_launches,
-               "jamba": j_launches, "whisper": w_launches}
+               "jamba": j_launches, "whisper": w_launches, "dryrun": d_launches}
     log(f"launches by served path: {by_path}")
     sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:71", "phi-3 prefill"),

@@ -83,14 +83,25 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _restack(layers, pl: ST.StackPlan):
-    def stacked(*leaves):
-        return np.stack([_array(x) for x in leaves])
+def _restack(layers, pl: ST.StackPlan, one, stacked):
+    """Per-layer trees -> ``{"blocks", "rem"}``: ``stacked`` over the leaves
+    of the repetitions of each pattern position, ``one`` over a remainder
+    layer's leaves."""
     blocks = tuple(_map(layers[j], stacked, *[layers[r * pl.period + j]
                                               for r in range(1, pl.n_rep)])
                    for j in range(pl.period if pl.n_rep else 0))
-    rem = tuple(_map(layers[pl.n_rep * pl.period + j], _array) for j in range(len(pl.rem)))
+    rem = tuple(_map(layers[pl.n_rep * pl.period + j], one) for j in range(len(pl.rem)))
     return {"blocks": blocks, "rem": rem}
+
+
+def _to_jax(params, cfg: ModelConfig, one, stacked):
+    out = {"embed": one(params["embed"]),
+           "stack": _restack(params["stack"], ST.decoder_plan(cfg), one, stacked),
+           "final_norm": one(params["final_norm"])}
+    if cfg.family == "encdec":
+        out["enc_stack"] = _restack(params["enc_stack"], ST.encoder_plan(cfg), one, stacked)
+        out["enc_norm"] = one(params["enc_norm"])
+    return out
 
 
 def params_to_jax(params, cfg: ModelConfig):
@@ -99,10 +110,29 @@ def params_to_jax(params, cfg: ModelConfig):
     leading axis of ``n_rep``, ``stack["rem"][j]`` layer
     ``n_rep * period + j``; the same for ``enc_stack``.  bf16 leaves come
     back as raw bits (``V2``); ``params_from_jax`` reads them."""
-    out = {"embed": _array(params["embed"]),
-           "stack": _restack(params["stack"], ST.decoder_plan(cfg)),
-           "final_norm": _array(params["final_norm"])}
-    if cfg.family == "encdec":
-        out["enc_stack"] = _restack(params["enc_stack"], ST.encoder_plan(cfg))
-        out["enc_norm"] = _array(params["enc_norm"])
-    return out
+    return _to_jax(params, cfg, _array,
+                   lambda *leaves: np.stack([_array(x) for x in leaves]))
+
+
+def _meta(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def _meta_stacked(*leaves: torch.Tensor) -> torch.Tensor:
+    t = leaves[0]
+    return torch.empty((len(leaves),) + tuple(t.shape), dtype=t.dtype, device="meta")
+
+
+def param_shapes(params, cfg: ModelConfig):
+    """The layout of ``params_to_jax`` with meta tensors for leaves: shapes
+    and types only, so it takes the port's parameters on any device, meta
+    included, and copies nothing (what ``jax.eval_shape`` of the
+    reference's ``init`` gives)."""
+    return _to_jax(params, cfg, _meta, _meta_stacked)
+
+
+def cache_shapes(caches, cfg: ModelConfig):
+    """The port's decode caches (one dictionary per decoder layer) as meta
+    tensors in the reference's stacked cache layout: ``{"blocks": (...),
+    "rem": (...)}`` with a leading ``n_rep`` axis on every block leaf."""
+    return _restack(caches, ST.decoder_plan(cfg), _meta, _meta_stacked)

@@ -38,12 +38,25 @@ from repro_torch.models import layers as L
 from repro_torch.models import stack as ST
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device, so that the init
+    functions, which allocate on ``gen.device``, build shapes only (PyTorch
+    has no generator on meta)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 def init(cfg: ModelConfig, *, seed: int = 0, device: D.DeviceLike = None):
     """Random parameters with the reference's distributions, drawn from a
-    generator seeded with ``seed`` on ``device`` (the card by default).  The
-    numbers differ from ``repro.models.model.init``'s: tests that compare
-    the two packages convert the reference's parameters instead."""
-    gen = torch.Generator(device=D.resolve(device)).manual_seed(seed)
+    generator seeded with ``seed`` on ``device`` (the card by default;
+    ``"meta"`` gives the shapes and types without memory, at any width).
+    The numbers differ from ``repro.models.model.init``'s: tests that
+    compare the two packages convert the reference's parameters instead."""
+    dev = D.resolve(device)
+    gen = (_MetaGenerator() if dev.type == "meta"
+           else torch.Generator(device=dev)).manual_seed(seed)
     emb = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                       dtype=torch.float32, device=gen.device)
     params = {

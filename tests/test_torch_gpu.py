@@ -600,3 +600,61 @@ def test_solve_enum_on_the_card_matches_brute(seed):
         if b.feasible:
             assert e.objective == pytest.approx(b.objective, rel=1e-9)
             assert OPT.solve_enum(pipe, lam, obj, device="cpu").config == e.config
+
+
+# The caching allocator rounds a block up to 512 bytes, keeps a large block
+# whole where splitting it would leave at most 1 MiB, and rounds segments up
+# to 2 MiB: a tensor may hold up to 2 MiB more than its bytes.
+ALLOC_SLACK = 2 << 20
+
+
+@pytest.mark.parametrize("arch", ["yi-34b", "jamba-v0.1-52b"])
+def test_dryrun_probe_on_the_card_allocates_what_it_counts(arch):
+    """A reduced decode case of the dry run built on the card: its tensors
+    hold the dry run's per-device argument bytes on a 1x1 mesh (less the
+    reference's int32 position, a Python int here), the allocator at most
+    ALLOC_SLACK a tensor more; the step runs K2 once an attention layer and
+    its logits are those of the naive path on the same arguments."""
+    _need_cuda()
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import stack as ST
+    from repro_torch.training import optim
+    cfg = configs.get_config(arch, reduced=True)
+    shape, mesh = InputShape("small_decode", 256, 4, "decode"), MeshShape(("data", "model"), (1, 1))
+    meta = DR.build_case(cfg, shape, mesh)
+    count = DR.sharded_bytes(meta.arg_shapes, meta.arg_specs, mesh)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    case = DR.build_case(cfg, shape, mesh, impl="kernel", device="cuda")
+    alloc = torch.cuda.memory_allocated() - base
+    leaves = optim.tree_leaves(case.args)
+    storage = sum(t.untyped_storage().nbytes() for t in leaves)
+    assert storage == count - 4
+    assert 0 <= alloc - storage <= ALLOC_SLACK * len(leaves)
+    before = K2.decode_attention.launches
+    with torch.no_grad():
+        got, _ = case.fn(*case.args)
+        torch.cuda.synchronize()
+        n_attn = sum(s.is_attn for s in ST.layer_specs(cfg))
+        assert K2.decode_attention.launches - before == n_attn
+        params, caches, tokens = case.args
+        want, _ = M.decode_step(params, cfg, caches, shape.seq_len - 1, tokens, impl="naive")
+    _close(got, want, torch.float32)
+
+
+def test_adaptability_on_the_card_prints_the_cpu_table():
+    _need_cuda()
+    import contextlib
+    import io
+
+    from repro_torch.examples import adaptability
+
+    def printed(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            adaptability.main(argv)
+        return buf.getvalue().splitlines()
+    card, cpu = printed([]), printed(["--device", "cpu"])
+    assert len(card) == 16 and card == cpu

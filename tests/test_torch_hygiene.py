@@ -16,7 +16,7 @@ from repro_torch import configs as TC
 from repro_torch.core import optimizer as TOPT
 from repro_torch.core import paper_profiles as TPP
 from repro_torch.core import predictor as TPR
-from repro_torch.examples import serve_pipeline, train_variant
+from repro_torch.examples import adaptability, serve_pipeline, train_variant
 from repro_torch.launch import serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import convert
@@ -46,7 +46,10 @@ def blocked_import():
             "repro_torch.launch.serve, repro_torch.examples.serve_pipeline, "
             "repro_torch.training, repro_torch.training.checkpoint, "
             "repro_torch.core.predictor, repro_torch.launch.train, "
-            "repro_torch.examples.train_variant\n"
+            "repro_torch.examples.train_variant, repro_torch.distributed.api, "
+            "repro_torch.distributed.sharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun, repro_torch.examples.quickstart, "
+            "repro_torch.examples.adaptability\n"
             f"import {', '.join(CONTROL_PLANE)}\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m, v in sys.modules.items() if v is not None)\n")
@@ -170,6 +173,13 @@ def test_launchers_without_a_device_raise_when_cuda_is_absent(no_cuda, monkeypat
     with pytest.raises(StopIteration) as stop:
         entry(["--device", "cpu"])
     assert str(stop.value.value) == "cpu"
+
+
+def test_adaptability_without_a_device_raises_when_cuda_is_absent(no_cuda):
+    """``solve_enum`` asks for the card unless ``--device`` says otherwise;
+    the dry run needs no device at all (meta tensors)."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        adaptability.main([])
 
 
 def test_cpu_is_explicit(no_cuda):
