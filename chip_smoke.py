@@ -95,10 +95,19 @@ Phases, each of which fails the script if it fails:
    (loss and gradients within 2e-4); the reference's learning check (120
    steps of reduced starcoder2-3b, the loss down by more than 0.2); and
    each kernel refusing inputs that require grad, before launching;
-14. dryrun (last): the port's dry run (``repro_torch.launch.dryrun``'s
-   ``main`` with ``--all``, on meta tensors, after the timed phases) over
-   every architecture x input shape pair on the 16x16 production mesh, all
-   35 ok; yi-34b x decode_32k's 1- and 2-block probes
+14. mesh: an NCCL process group of one rank in this process and the 1x1
+   ``DeviceMesh`` over it; the launcher's mesh path (DTensor parameters,
+   moments and batches, the models' ``constrain``) on starcoder2-3b with
+   phase 13's arguments, each step's loss and grad norm within 2e-2
+   (relative) of phase 13's, its step time, tokens/s and peak memory beside
+   phase 13's; a checkpoint saved from the mesh and loaded back onto it,
+   every leaf equal bit for bit; the group destroyed after;
+15. dryrun (last): the port's dry run (``repro_torch.launch.dryrun``'s
+   ``main`` with ``--all``, on meta tensors, after the timed phases, its
+   cases in SWEEP_JOBS processes) over every architecture x input shape
+   pair on the 16x16 production mesh, all 35 ok, each record with its
+   collective bytes and time (DTensor on a fake process group), yi-34b's
+   decode_32k and train_4k collectives printed by kind; yi-34b x decode_32k's 1- and 2-block probes
    (B 128, a 32768-slot cache, full width) built for real on the card and
    run with K2 over every slot: the allocator's bytes for their arguments
    against the dry run's count, the step's peak over them, and the device
@@ -123,6 +132,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -130,6 +140,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
@@ -148,6 +159,7 @@ from repro_torch.core import adapter as AD  # noqa: E402
 from repro_torch.core import paper_profiles as PP  # noqa: E402
 from repro_torch.core import predictor as PR  # noqa: E402
 from repro_torch.core import trace as TR  # noqa: E402
+from repro_torch.distributed import api as dapi  # noqa: E402
 from repro_torch.examples import adaptability, quickstart  # noqa: E402
 from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.launch import serve as SV  # noqa: E402
@@ -158,6 +170,7 @@ from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MO  # noqa: E402
 from repro_torch.serving.engine import PipelineEngine, StageServer  # noqa: E402
+from repro_torch.training import checkpoint as CK  # noqa: E402
 from repro_torch.training import data as TD  # noqa: E402
 from repro_torch.training import optim as OT  # noqa: E402
 from repro_torch.training import train as TT  # noqa: E402
@@ -1951,6 +1964,17 @@ def _grads(params, cfg, batch):
     return loss.detach(), OT.tree_map(lambda _: next(flat), params)
 
 
+def _timed_steps(step, params, state, batch, n=3):
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    return times
+
+
 def _train_full_width():
     cfg = configs.get_config(TRAIN_ARCH)
     log(f"train: {TRAIN_ARCH} at its published config (hf:bigcode/starcoder2-3b; "
@@ -1973,13 +1997,7 @@ def _train_full_width():
     rng = np.random.default_rng(0)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)))
              .to(DEV) for k in ("tokens", "labels")}
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        step(params, state, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
+    times = _timed_steps(step, params, state, batch)
     step_s = float(np.mean(times))
     prof, kernels = _device_profile("full-width train step", lambda attempt: step(params, state,
                                                                                    batch))
@@ -2003,7 +2021,7 @@ def _train_full_width():
         f"{opt_s * 1e3:.3f} ms (host clock, synchronised), {opt_s / step_s:.4f} of a step")
     del params, state, grads, prof
     return dict(step_ms=step_s * 1e3, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
-                peak_gib=peak, opt_share=share, opt_ms=opt_s * 1e3)
+                peak_gib=peak, opt_share=share, opt_ms=opt_s * 1e3, hist=hist)
 
 
 def _train_parity():
@@ -2074,9 +2092,91 @@ def phase_train():
 
 
 # ---------------------------------------------------------------------------
+# mesh: the launcher's mesh path on a DeviceMesh of one card
+# ---------------------------------------------------------------------------
+MESH_TOL = 2e-2                          # bf16: tests/test_kernels.py:13-15
+MESH_CKPT = ROOT / "build" / "chip_smoke_mesh" / "starcoder2-3b.npz"
+
+
+def _free_port() -> int:
+    with contextlib.closing(socket.socket()) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh(train):
+    """starcoder2-3b through the launcher's mesh path on the 1x1 mesh of an
+    NCCL group of one rank, against phase train's plain path: the same
+    arguments, each step's loss and grad norm within MESH_TOL relative; its
+    step time (the same fixed batch as phase train's, placed on the mesh),
+    tokens/s and peak memory beside phase train's; the launcher's checkpoint
+    loaded back onto the mesh, bit for bit."""
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_CKPT.parent, ignore_errors=True)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        params, state, hist = LT.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                                       "--log-every", "1", "--save", str(MESH_CKPT)])
+        wall = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        leaf = OT.tree_leaves(params)[0]
+        mesh = leaf.device_mesh
+        log(f"mesh: {TRAIN_ARCH} through launch.train on {mesh} (NCCL, one rank), "
+            f"{TRAIN_STEPS} steps in {wall:.3f} s with the checkpoint; leaves are "
+            f"{type(leaf).__name__}s, e.g. embed {tuple(params['embed'].placements)}")
+        worst = 0.0
+        for h, p in zip(hist, train["hist"], strict=True):
+            rel = max(abs(h[k] - p[k]) / abs(p[k]) for k in ("loss", "grad_norm"))
+            worst = max(worst, rel)
+            log(f"  meshed step {h['step']}: loss {h['loss']:.6f} (plain {p['loss']:.6f}), "
+                f"grad norm {h['grad_norm']:.6f} (plain {p['grad_norm']:.6f}), rel {rel:.3e}")
+        assert worst <= MESH_TOL, worst
+        cfg = configs.get_config(TRAIN_ARCH)
+        t1 = time.perf_counter()
+        back = CK.load(str(MESH_CKPT), cfg, device=DEV, mesh=mesh,
+                       specs=LT.param_specs(params, cfg, mesh))
+        load_s = time.perf_counter() - t1
+        pairs = list(zip(OT.tree_leaves(params), OT.tree_leaves(back), strict=True))
+        same = all(b.placements == a.placements and torch.equal(b.to_local(), a.to_local())
+                   for a, b in pairs)
+        size = MESH_CKPT.stat().st_size
+        log(f"mesh checkpoint: {size / 2**30:.3f} GiB written by rank 0, loaded back onto "
+            f"the mesh in {load_s:.3f} s; {len(pairs)} leaves equal bit for bit: {same}")
+        assert same
+        del back, pairs
+        shutil.rmtree(MESH_CKPT.parent, ignore_errors=True)
+        ocfg = OT.AdamWConfig(lr=1e-3, warmup_steps=min(20, TRAIN_STEPS // 5),
+                              total_steps=TRAIN_STEPS)
+        step = TT.make_train_step(cfg, ocfg, impl="naive")
+        rng = np.random.default_rng(0)
+        batch = TD.to_device({k: rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ))
+                              for k in ("tokens", "labels")}, DEV, mesh)
+        with dapi.use_mesh(mesh):
+            times = _timed_steps(step, params, state, batch)
+        step_s = float(np.mean(times))
+        log(f"mesh: step time {step_s * 1e3:.3f} ms (host clock, synchronised, mean of 3: "
+            f"{[round(x * 1e3, 3) for x in times]}), {TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} "
+            f"tokens/s, peak memory {peak:.3f} GiB over the launcher's run; phase train's "
+            f"plain path {train['step_ms']:.3f} ms, {train['tokens_per_s']:.1f} tokens/s, "
+            f"{train['peak_gib']:.3f} GiB: DTensor's cost {step_s * 1e3 / train['step_ms']:.4f}x "
+            f"the time, {peak / train['peak_gib']:.4f}x the peak")
+        del params, state, batch
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    return dict(step_ms=step_s * 1e3, peak_gib=peak, worst_rel=worst)
+
+
+# ---------------------------------------------------------------------------
 # dryrun: the meta-tensor dry run, its count held against the card, and the
 # control-plane examples on the card
 # ---------------------------------------------------------------------------
+SWEEP_JOBS = 8
 SWEEP_DIR = ROOT / "build" / "chip_smoke_dryrun"
 PROBE_ARCH, PROBE_SHAPE = "yi-34b", "decode_32k"
 # PyTorch's caching allocator rounds a block up to 512 bytes, keeps a large
@@ -2097,7 +2197,7 @@ def _dryrun_sweep():
     shutil.rmtree(SWEEP_DIR, ignore_errors=True)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = DR.main(["--all", "--out", str(SWEEP_DIR)])     # 1: some case failed
+        rc = DR.main(["--all", "--out", str(SWEEP_DIR), "--jobs", str(SWEEP_JOBS)])
     out = buf.getvalue()
     pairs = configs.all_dryrun_pairs()
     recs = [json.loads((SWEEP_DIR / f"{a}__{s.name}__singlepod__einsum.json").read_text())
@@ -2110,9 +2210,17 @@ def _dryrun_sweep():
             f"params, arguments {r['mem']['argument_gb']:.4f} GiB a device, counted "
             f"{r['counted_flops_per_dev']:.4e} FLOP a device (model "
             f"{r['model_flops_per_dev']:.4e}), compute_s {r['compute_s']:.4e}, "
-            f"counted_memory_s {r['counted_memory_s']:.4e}: {r['counted_bottleneck']}-bound "
-            f"by the counts ({r['total_s']} s)")
-    n_ok = sum(r["ok"] for r in recs)
+            f"counted_memory_s {r['counted_memory_s']:.4e}, collective "
+            f"{r['collective_bytes_per_dev']:.4e} B a device, collective_s "
+            f"{r['collective_s']:.4e}: {r['counted_bottleneck']}-bound by the counts "
+            f"({r['total_s']} s)")
+        if r["arch"] == PROBE_ARCH and r["shape"] in ("decode_32k", "train_4k"):
+            log(f"  collectives of {r['arch']} x {r['shape']} by kind (B a device): "
+                f"{ {k: r['collectives'][k] for k in DR.KINDS} }; counts "
+                f"{r['collectives']['_counts']}; by axis {r['collectives']['_by_axis']}; "
+                f"links {r['link_bw']}")
+    n_ok = sum(r["ok"] and r["collective_bytes_per_dev"] is not None
+               and r["collective_s"] is not None for r in recs)
     log(f"dryrun sweep: {out.strip().splitlines()[-1]}, exit {rc}; "
         f"{sum(r['total_s'] for r in recs):.1f} s of cases, {time.perf_counter() - t0:.1f} s "
         f"in all (counts on meta tensors over NVIDIA's data-sheet peaks)")
@@ -2282,9 +2390,10 @@ def main() -> int:
     w_launches = phase_whisper()
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train()
+    train = phase_train()
     gc.collect()
     torch.cuda.empty_cache()
+    phase_mesh(train)
     d_launches = phase_dryrun()
     # each kernel's launches: the sum over the paths' runs, each read from
     # zero just before its run and just after

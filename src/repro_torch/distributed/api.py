@@ -1,20 +1,30 @@
 """Mesh-agnostic sharding hints, after ``repro/distributed/api.py``.
 
-The reference's model code calls ``constrain(x, "data", None, "model")`` to
-pin activations inside a mesh and is the identity outside one.  The port
-runs on one card and has no ambient mesh, so ``constrain`` returns its input
-and ``mesh_axis_size`` is 1; the port's models do not call them.  What stays
-is the mapping of logical axis names onto mesh axes (the multi-pod mesh
-folds "pod" into "data"), which ``resolve`` turns into a spec.
+The models call ``constrain(x, "data", None, "model")`` to pin activations
+inside a mesh.  A ``DeviceMesh`` is active inside ``use_mesh(mesh)``,
+which sets its axis rules too; there ``constrain`` redistributes a DTensor to the
+placements of ``resolve(names)``, as the reference's
+``with_sharding_constraint`` pins a traced array.  Anywhere else, and on a
+plain tensor, it is the identity, so the models run unchanged outside a
+mesh.  The mapping of logical axis names onto mesh axes (the multi-pod mesh
+folds "pod" into "data") is the reference's.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
+
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import PartitionSpec as P
 
 # logical -> physical axis mapping; "data" may expand to ("pod", "data").
 _ACTIVE_RULES: Optional[dict] = None
+# the DeviceMesh the models' activations live on, or None
+_ACTIVE_MESH = None
 
 
 def set_axis_rules(rules: Optional[dict]) -> None:
@@ -25,6 +35,21 @@ def set_axis_rules(rules: Optional[dict]) -> None:
 
 def get_axis_rules() -> Optional[dict]:
     return _ACTIVE_RULES
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """``mesh`` active, with its axis rules, for the block; plain tensors
+    that meet DTensors there (positions, masks, the step count) count as
+    replicated on it.  The previous mesh and rules come back after."""
+    global _ACTIVE_MESH, _ACTIVE_RULES
+    prev = _ACTIVE_MESH, _ACTIVE_RULES
+    _ACTIVE_MESH, _ACTIVE_RULES = mesh, shd.axis_rules(mesh)
+    try:
+        with implicit_replication():
+            yield mesh
+    finally:
+        _ACTIVE_MESH, _ACTIVE_RULES = prev
 
 
 def resolve(spec_names: Tuple[Optional[str], ...]) -> P:
@@ -44,13 +69,113 @@ def resolve(spec_names: Tuple[Optional[str], ...]) -> P:
     return P(*out)
 
 
+def _active_mesh_axes():
+    """{axis: size} of the active mesh, or None when none is."""
+    if _ACTIVE_MESH is None:
+        return None
+    return shd.mesh_shape(_ACTIVE_MESH).shape
+
+
 def mesh_axis_size(logical: str) -> int:
-    """Size of a logical axis on the active mesh: 1, since the port has no
-    active mesh (the reference's is 1 outside one too)."""
-    return 1
+    """Active-mesh size of a logical axis ("data"/"model"); 1 if no mesh."""
+    if _ACTIVE_RULES is None:
+        return 1
+    sizes = _active_mesh_axes()
+    if sizes is None:
+        return 1
+    out = 1
+    for phys in _ACTIVE_RULES.get(logical, ()):
+        out *= sizes.get(phys, 1)
+    return out
+
+
+def _whole(x, dim: int, parts: int):
+    mesh = x.device_mesh
+    pl = tuple(Replicate() if p == Shard(dim) and parts % mesh.size(i) else p
+               for i, p in enumerate(x.placements))
+    return x.view_as(x) if pl == tuple(x.placements) else x.redistribute(mesh, pl)
+
+
+class _WholePieces(torch.autograd.Function):
+    """``_whole`` on the way in and on the gradient's way back."""
+
+    @staticmethod
+    def forward(ctx, x, dim, parts):
+        ctx.dim, ctx.parts = dim, parts
+        return _whole(x, dim, parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _whole(grad, ctx.dim, ctx.parts), None, None
+
+
+def whole_pieces(x, dim: int, parts: int):
+    """A DTensor ``x`` with ``dim`` gathered on each mesh dim whose shards
+    would cut one of ``parts`` equal pieces of it, and its gradient the
+    same, so that ``dim`` can be viewed as ``(parts, dim // parts)`` both
+    ways; any other tensor as it is.
+
+    aten.view cannot split a dim so sharded, and DTensor shards a product's
+    output columns wherever the weight is replicated (a projection onto KV
+    heads that do not divide the model axis, or the gradient of the heads
+    that the output projection merges)."""
+    if not isinstance(x, DTensor):
+        return x
+    return _WholePieces.apply(x, dim % x.dim(), parts)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def contiguous_grad(x):
+    """A DTensor ``x`` whose gradient comes back contiguous: DTensor takes
+    the reshape that undoes a product's flattening for a view, which a
+    permuted gradient refuses, where aten would copy.  Any other tensor as
+    it is."""
+    return _ContiguousGrad.apply(x) if isinstance(x, DTensor) else x
 
 
 def constrain(x, *names: Optional[str]):
-    """The identity: the reference pins ``x`` to ``resolve(names)`` only
-    inside an active mesh, which the port never has."""
-    return x
+    """``x`` redistributed to ``resolve(names)`` if it is a DTensor and a
+    mesh is active, else ``x``.
+
+    Skips axes whose size does not divide the dim, and skips entirely on
+    rank mismatch (helpers are reused at several ranks)."""
+    if _ACTIVE_RULES is None:
+        return x
+    axes = _active_mesh_axes()
+    if axes is None or not isinstance(x, DTensor):
+        return x
+    if x.dim() != len(names):
+        return x
+    spec = resolve(names)
+
+    def keep(entry, dim):
+        if entry is None:
+            return None
+        if isinstance(entry, tuple):
+            kept = tuple(a for a in entry if a in axes)
+            if not kept:
+                return None
+            size = 1
+            for a in kept:
+                size *= axes[a]
+            return kept if dim % size == 0 else None
+        if entry not in axes or dim % axes[entry] != 0:
+            return None
+        return entry
+
+    spec = P(*[keep(e, d) for e, d in zip(spec, x.shape)])
+    out = x.redistribute(_ACTIVE_MESH, shd.placements(_ACTIVE_MESH, spec))
+    # a shard cut from a replica along a later dim is a strided view of it,
+    # which aten.view (a product's flattening) refuses: copy it
+    if not out.to_local().is_contiguous():
+        out = out.clone(memory_format=torch.contiguous_format)
+    return out

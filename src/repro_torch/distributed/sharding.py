@@ -24,18 +24,29 @@ that layout (``repro_torch.models.convert.param_shapes`` and
 ``cache_shapes`` give them from the port's parameters and caches), with
 path strings as the reference builds them (``stack/blocks/0/attn/wq``).
 
-A mesh is anything with ``.shape`` (an ordered ``{axis: size}`` dict) and
-``.axis_names``, such as ``repro_torch.launch.mesh.MeshShape``.  The
-reference's ``named`` (specs -> ``NamedSharding``s) has no counterpart on a
-host with one card: placing shards needs a multi-GPU host (DTensor
-placements are the likely form).
+A mesh is a ``torch.distributed`` ``DeviceMesh`` with named dims, or
+anything with ``.shape`` (an ordered ``{axis: size}`` dict) and
+``.axis_names``, such as ``repro_torch.launch.mesh.MeshShape``.
+
+``named`` turns specs into DTensor placements on a ``DeviceMesh``, as the
+reference's turns them into ``NamedSharding``s: one placement a mesh dim,
+``Shard(d)`` on the mesh dims that tensor dim ``d`` names (several, major
+to minor, for a tuple entry such as ``("pod", "data")``), ``Replicate()``
+on the others.  ``distribute`` places a tree of tensors by them.  The
+port's per-layer parameters take the stacked specs through
+``convert.specs_from_jax``, which drops a block leaf's layer entry
+(ROADMAP P10: an axis the rules put on the layer axis of a stacked leaf
+is replicated on the per-layer leaf).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.launch.mesh import MeshShape
 
 
 class PartitionSpec(tuple):
@@ -60,15 +71,24 @@ class MeshAxes:
 
     @classmethod
     def of(cls, mesh) -> "MeshAxes":
-        names = mesh.axis_names
+        names = mesh_shape(mesh).axis_names
         data = tuple(a for a in ("pod", "data") if a in names)
         return cls(data=data, model=("model",) if "model" in names else ())
 
 
+def mesh_shape(mesh):
+    """A ``DeviceMesh`` as its ``MeshShape``; any other mesh as it is."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        return mesh
+    return MeshShape(tuple(names), tuple(mesh.shape))
+
+
 def _axis_size(mesh, axes: Tuple[str, ...]) -> int:
+    shape = mesh_shape(mesh).shape
     s = 1
     for a in axes:
-        s *= mesh.shape[a]
+        s *= shape[a]
     return s
 
 
@@ -224,3 +244,51 @@ def cache_specs(cfg: ModelConfig, shape: InputShape, mesh, caches_shape):
 def axis_rules(mesh) -> dict:
     ax = MeshAxes.of(mesh)
     return {"data": ax.data, "model": ax.model}
+
+
+def placements(mesh, spec: P) -> tuple:
+    """The DTensor placements of ``spec`` on the ``DeviceMesh`` ``mesh``."""
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        unknown = [a for a in axes if a not in names]
+        if unknown:
+            raise ValueError(f"{spec}: the mesh {names} has no axis {unknown}")
+        dims = [names.index(a) for a in axes]
+        # DTensor shards a dim over several mesh dims in mesh order, JAX in
+        # the entry's order: the two agree only when they are the same
+        if dims != sorted(dims):
+            raise ValueError(f"{spec}: entry {entry} names axes out of mesh order {names}")
+        for m in dims:
+            if out[m] != Replicate():
+                raise ValueError(f"{spec}: axis {names[m]!r} shards two dims")
+            # a dim over one device is whole: DTensor's views refuse to drop
+            # a dim sharded even one way
+            out[m] = Shard(d) if mesh.size(m) > 1 else Replicate()
+    return tuple(out)
+
+
+def _map_specs(fn, tree):
+    if isinstance(tree, P):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return type(tree)(_map_specs(fn, v) for v in tree)
+
+
+def named(mesh, spec_tree):
+    """Placements for every spec of ``spec_tree``, tree for tree."""
+    return _map_specs(lambda s: placements(mesh, s), spec_tree)
+
+
+def distribute(tree, mesh, spec_tree):
+    """Every tensor of ``tree`` as a DTensor on ``mesh`` under its spec.
+    Each rank must hold the same full tree (a seeded init, one checkpoint,
+    one batch of the seeded stream): a rank keeps its own shards and sends
+    nothing."""
+    if isinstance(tree, dict):
+        return {k: distribute(v, mesh, spec_tree[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(distribute(v, mesh, s) for v, s in zip(tree, spec_tree))
+    return distribute_tensor(tree, mesh, placements(mesh, spec_tree), src_data_rank=None)

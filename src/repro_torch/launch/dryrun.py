@@ -16,9 +16,19 @@ needs no memory and no device; it runs anywhere:
 
 The counts are of the unpartitioned program, divided by the mesh's device
 count: an ideal partition.  The reference's are of the partitioned program
-that XLA compiled.  There is no partitioned program to read collectives
-from (the reference parses XLA's HLO in ``collective_bytes``), so
-``collective_bytes_per_dev`` and ``collective_s`` are None.
+that XLA compiled.
+
+Collectives: each probe runs once more with its arguments as DTensors on
+``meta`` under their specs, on a ``DeviceMesh`` of the production shape over
+a process group of backend ``"fake"`` as large as the mesh (its collectives
+do nothing), with the mesh active for the models' ``constrain``.
+``CollectiveCounter`` sums the result bytes of every collective that
+DTensor issues on rank 0, by the reference's kinds, and the probes
+extrapolate as the flops do: ``collective_bytes_per_dev`` and
+``collectives``.  ``collective_s`` divides each collective's bytes by the
+link its mesh axis runs over (``LINKS``).  DTensor propagates shardings op
+by op, which is not GSPMD's partitioner: the bytes are the port's, not
+XLA's (``collective_note``).
 
 Memory: ``mem.argument_gb`` and ``mem.output_gb`` are the per-device bytes
 of the step's arguments and outputs under the sharding specs of
@@ -40,8 +50,10 @@ two terms ``counted_bottleneck``, not the reference's ``memory_s`` and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import sys
 import time
@@ -49,12 +61,16 @@ import traceback
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_map_only
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.distributed import api as dapi
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import MeshShape, make_production_mesh
 from repro_torch.models import convert
@@ -67,10 +83,29 @@ from repro_torch.training.data import input_specs
 # --- H100 SXM, NVIDIA data sheet, 700 W (roofline) --------------------------
 PEAK_FLOPS = 989e12          # dense bf16 tensor cores, FLOP/s
 HBM_BW = 3.35e12             # bytes/s
-# A collective term would divide by NVLink 4's 450 GB/s each way per card;
-# without a partitioned program there are no collective bytes to divide.
-COLLECTIVE_NOTE = ("no partitioned program: the reference reads collectives "
-                   "from XLA's HLO, which a meta-tensor probe does not have")
+# --- links (data sheets, not measurements) ---------------------------------
+# NVLink 4 inside an 8-card HGX H100 node: 450 GB/s each way a card; across
+# nodes one 400 Gb/s ConnectX-7 NIC a card: 50 GB/s
+NODE_CARDS = 8
+NVLINK_BW = 450e9
+NIC_BW = 50e9
+LINKS = ("NVLink 4, 450e9 B/s each way a card, for a mesh axis inside an "
+         "8-card HGX H100 node; 400 Gb/s ConnectX-7, 50e9 B/s a card, for an "
+         "axis that crosses nodes (ranks in mesh order, 8 a node)")
+COLLECTIVE_NOTE = ("result bytes of the collectives DTensor issues on rank 0 of a fake "
+                   "process group, op by op: not GSPMD's partitioning, so not the "
+                   "reference's XLA count; an operation DTensor refuses runs on its "
+                   "operands gathered whole (_fallbacks, which depend on the PyTorch "
+                   "release)")
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
+_COLLECTIVE_KINDS = {"all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+                     "all_gather_into_tensor": "all-gather",
+                     "all_gather_into_tensor_coalesced": "all-gather",
+                     "reduce_scatter_tensor": "reduce-scatter",
+                     "reduce_scatter_tensor_coalesced": "reduce-scatter",
+                     "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all"}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
+_NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
 _VIEWS = {torch.ops.aten._unsafe_view.default}
 
 
@@ -100,13 +135,15 @@ class Case:
     """One step and its arguments: ``fn(*args)`` runs it; ``arg_shapes`` and
     ``out_shapes`` are the arguments and outputs in the reference's stacked
     layout (meta tensors), ``arg_specs`` and ``out_specs`` their sharding
-    specs, tree for tree."""
+    specs, tree for tree; ``specs`` are the specs of ``args`` in the port's
+    layout."""
     fn: object
     args: tuple
     arg_shapes: tuple
     arg_specs: tuple
     out_shapes: tuple
     out_specs: tuple
+    specs: tuple
 
 
 def _inputs(cfg, shape: InputShape, kind: str, device: torch.device):
@@ -187,16 +224,19 @@ def build_case(cfg: ModelConfig, shape: InputShape, mesh, *,
         bshape = {k: _meta(v.shape, v.dtype) for k, v in batch.items()}
         # loss, ce, aux, grad_norm, lr: f32 scalars
         metrics = {k: _meta((), torch.float32) for k in ("loss", "ce", "aux", "grad_norm", "lr")}
+        port = convert.specs_from_jax(pspec, cfg)
         return Case(step, (params, opt_state, batch),
                     (params_shape, opt_shape, bshape), (pspec, ospec, bspecs(bshape)),
                     (params_shape, opt_shape, metrics),
-                    (pspec, ospec, {k: shd.P() for k in metrics}))
+                    (pspec, ospec, {k: shd.P() for k in metrics}),
+                    (port, {"mu": port, "nu": port, "step": shd.P()}, bspecs(bshape)))
     fsdp, e2d = _weights(cfg, mesh, weights_mode)
     pspec = shd.param_specs(params_shape, mesh, fsdp=fsdp, expert_mode=e2d)
     prefix = cfg.n_patches if cfg.family == "vlm" else 0
     cache_shape = convert.cache_shapes(
         M.init_cache(cfg, batch_dim, shape.seq_len + prefix, device="meta"), cfg)
     cspec = shd.cache_specs(cfg, shape, mesh, cache_shape)
+    port = convert.specs_from_jax(pspec, cfg)
     if shape.kind == "prefill":
         batch = _inputs(cfg, shape, "prefill", device)
         bshape = {k: _meta(v.shape, v.dtype) for k, v in batch.items()}
@@ -207,7 +247,7 @@ def build_case(cfg: ModelConfig, shape: InputShape, mesh, *,
 
         hidden = _meta((batch_dim, cfg.d_model), cfg.dtype)
         return Case(fn, (params, batch), (params_shape, bshape), (pspec, bspecs(bshape)),
-                    (hidden, cache_shape), (shd.P(bdim, None), cspec))
+                    (hidden, cache_shape), (shd.P(bdim, None), cspec), (port, bspecs(bshape)))
     if shape.kind == "decode":
         caches = M.init_cache(cfg, batch_dim, shape.seq_len + prefix, device=device)
         tokens = _inputs(cfg, shape, "decode", device)["tokens"]
@@ -224,7 +264,8 @@ def build_case(cfg: ModelConfig, shape: InputShape, mesh, *,
         return Case(fn, (params, caches, tokens),
                     (params_shape, cache_shape, pos, tshape),
                     (pspec, cspec, shd.P(), shd.P(bdim, None)),
-                    (logits, cache_shape), (shd.P(bdim, None), cspec))
+                    (logits, cache_shape), (shd.P(bdim, None), cspec),
+                    (port, convert.cache_specs_from_jax(cspec, cfg), shd.P(bdim, None)))
     raise ValueError(shape.kind)
 
 
@@ -278,6 +319,120 @@ def count(case: Case):
     return float(flops.get_total_flops()), float(nbytes.bytes)
 
 
+class CollectiveCounter(TorchDispatchMode):
+    """Sums the result bytes of every collective dispatched under it, by
+    the reference's kinds and by the mesh axis of its group (``groups``:
+    group name -> axis name).
+
+    An operation on DTensors goes to DTensor, whose local operations and
+    collectives come back here.  Where DTensor refuses one (no sharding
+    rule, a view it cannot split, a redistribution it cannot plan: which
+    ones depends on the PyTorch release), the operation runs again on its
+    DTensor operands gathered whole (``Replicate()`` on every mesh dim, the
+    gathers counted; an operation with no rule even then runs on the whole
+    local tensors), and ``fallbacks`` counts it by name.  An operation
+    that writes into an operand cannot run on a gathered copy: its refusal
+    stands."""
+
+    def __init__(self, groups: Dict[str, str]):
+        super().__init__()
+        self.groups = groups
+        self.bytes = {k: 0 for k in KINDS}
+        self.counts = {k: 0 for k in KINDS}
+        self.by_axis = {a: 0 for a in groups.values()}
+        self.fallbacks: Dict[str, int] = {}
+        self._in_dtensor = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            if self._in_dtensor:
+                return NotImplemented
+            return self._dtensor_op(func, args, kwargs)
+        out = func(*args, **kwargs)
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return out
+        if func.namespace in _COLLECTIVE_NAMESPACES and func._opname not in _NOT_COLLECTIVES:
+            kind = _COLLECTIVE_KINDS[func._opname]     # KeyError: a collective not counted
+            group = next(a for a in args if isinstance(a, str) and a in self.groups)
+            nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(out)
+                         if isinstance(t, torch.Tensor))
+            self.bytes[kind] += nbytes
+            self.counts[kind] += 1
+            self.by_axis[self.groups[group]] += nbytes
+        return out
+
+    def _dtensor_op(self, func, args, kwargs):
+        self._in_dtensor = True
+        try:
+            with self:
+                try:
+                    return func(*args, **kwargs)
+                except (RuntimeError, NotImplementedError, IndexError):
+                    if func._schema.is_mutable:
+                        raise
+                self.fallbacks[str(func)] = self.fallbacks.get(str(func), 0) + 1
+                whole = tree_map_only(DTensor, lambda t: t.redistribute(
+                    t.device_mesh, [Replicate()] * t.device_mesh.ndim), (args, kwargs))
+                try:
+                    return func(*whole[0], **whole[1])
+                except NotImplementedError:
+                    # no sharding rule at all: the whole tensors are local
+                    mesh = next(t.device_mesh for t in tree_leaves(whole)
+                                if isinstance(t, DTensor))
+                    local = tree_map_only(DTensor, lambda t: t.to_local(), whole)
+                    return tree_map_only(torch.Tensor, lambda t: DTensor.from_local(
+                        t, mesh, [Replicate()] * mesh.ndim, run_check=False),
+                        func(*local[0], **local[1]))
+        finally:
+            self._in_dtensor = False
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh: MeshShape):
+    """A ``DeviceMesh`` of ``mesh``'s shape over a process group of backend
+    ``"fake"`` with one rank a device (this process is rank 0), torn down
+    after.  Refuses to run where a process group is already initialised."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("the dry run's collective count makes its own fake process "
+                           "group; destroy the initialised one first")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    try:
+        # a "cuda" mesh: DTensor sends all-to-all through its own op there,
+        # where a CPU mesh gathers instead; the tensors stay on meta
+        yield init_device_mesh("cuda", tuple(mesh.axis_sizes),
+                               mesh_dim_names=tuple(mesh.axis_names))
+    finally:
+        dist.destroy_process_group()
+
+
+def link_bw(dmesh) -> Dict[str, float]:
+    """B/s a card for each axis of a ``DeviceMesh``: NVLink where every group
+    of the axis lies within one node of NODE_CARDS consecutive ranks, the
+    NIC where one crosses nodes."""
+    out = {}
+    for i, name in enumerate(dmesh.mesh_dim_names):
+        ranks = dmesh.mesh.movedim(i, -1).reshape(-1, dmesh.mesh.shape[i])
+        nodes = ranks // NODE_CARDS
+        out[name] = NIC_BW if bool((nodes != nodes[:, :1]).any()) else NVLINK_BW
+    return out
+
+
+def collectives(case: Case, dmesh) -> Dict:
+    """The collectives of one run of ``case.fn`` with its arguments as
+    DTensors on ``dmesh`` under ``case.specs``: bytes and counts by kind,
+    bytes by mesh axis."""
+    groups = {dmesh.get_group(i).group_name: name
+              for i, name in enumerate(dmesh.mesh_dim_names)}
+    args = shd.distribute(case.args, dmesh, case.specs)
+    counter = CollectiveCounter(groups)
+    with dapi.use_mesh(dmesh), counter:
+        case.fn(*args)
+    return {"bytes": counter.bytes, "counts": counter.counts, "by_axis": counter.by_axis,
+            "fallbacks": counter.fallbacks}
+
+
 def model_flops_per_device(cfg: ModelConfig, shape: InputShape,
                            n_devices: int) -> float:
     n = cfg.n_active_params()
@@ -326,6 +481,33 @@ def probe_costs(cfg: ModelConfig, shape: InputShape, mesh, *,
             "probe_raw": res, "n_rep": n_rep}
 
 
+def probe_collectives(cfg: ModelConfig, shape: InputShape, mesh: MeshShape, *,
+                      moe_impl: str = "einsum", weights_mode: str = "auto",
+                      microbatch: int = 1):
+    """Per-device collective bytes from the same two probes on a fake
+    ``DeviceMesh`` of ``mesh``'s shape, extrapolated as ``probe_costs``
+    extrapolates, by kind and by mesh axis, with counts and the collective
+    time over ``link_bw``."""
+    n_rep = ST.plan(cfg, cross=(cfg.family == "encdec")).n_rep
+    res = {}
+    with fake_mesh(mesh) as dmesh:
+        bw = link_bw(dmesh)
+        for k in (1, 2):
+            case = build_case(_probe_cfg(cfg, k), shape, mesh, moe_impl=moe_impl,
+                              weights_mode=weights_mode, microbatch=microbatch)
+            res[k] = collectives(case, dmesh)
+
+    def extrap(part):
+        return {key: max(res[1][part][key] + (n_rep - 1)
+                         * (res[2][part][key] - res[1][part][key]), 0)
+                for key in res[1][part]}
+
+    by_axis = extrap("by_axis")
+    return {"bytes": extrap("bytes"), "counts": extrap("counts"), "by_axis": by_axis,
+            "seconds": sum(b / bw[a] for a, b in by_axis.items()), "link_bw": bw,
+            "probe_raw": res}
+
+
 def make_custom_mesh(spec: str) -> MeshShape:
     """'32x8' -> a (data=32, model=8) mesh shape."""
     d, m = (int(x) for x in spec.split("x"))
@@ -354,14 +536,20 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
         probe = probe_costs(cfg, shape, mesh, moe_impl=moe_impl,
                             weights_mode=weights_mode, microbatch=microbatch)
         flops, bytes_acc = probe["flops"], probe["bytes"]
+        coll = probe_collectives(cfg, shape, mesh, moe_impl=moe_impl,
+                                 weights_mode=weights_mode, microbatch=microbatch)
         mflops = model_flops_per_device(cfg, shape, n_dev)
         rec.update({
             "ok": True,
             "params": cfg.n_params(),
             "counted_flops_per_dev": flops,
             "counted_bytes_per_dev": bytes_acc,
-            "collective_bytes_per_dev": None,
-            "probe": {"n_rep": probe["n_rep"], "raw": probe["probe_raw"]},
+            "collective_bytes_per_dev": float(sum(coll["bytes"].values())),
+            "collectives": {**coll["bytes"], "_counts": coll["counts"],
+                            "_by_axis": coll["by_axis"],
+                            "_fallbacks": coll["probe_raw"][2]["fallbacks"]},
+            "probe": {"n_rep": probe["n_rep"], "raw": probe["probe_raw"],
+                      "collectives_raw": {k: v["bytes"] for k, v in coll["probe_raw"].items()}},
             "mem": {
                 "argument_gb": sharded_bytes(case.arg_shapes, case.arg_specs, mesh) / 2**30,
                 "output_gb": sharded_bytes(case.out_shapes, case.out_specs, mesh) / 2**30,
@@ -370,12 +558,15 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
             "model_flops_per_dev": mflops,
             "compute_s": flops / PEAK_FLOPS,
             "counted_memory_s": bytes_acc / HBM_BW,
-            "collective_s": None,
+            "collective_s": coll["seconds"],
+            "links": LINKS,
+            "link_bw": coll["link_bw"],
             "collective_note": COLLECTIVE_NOTE,
             "peaks": "H100 SXM data sheet at 700 W: 989e12 bf16 FLOP/s, 3.35e12 B/s",
             "useful_flops_ratio": mflops / flops if flops else 0.0,
         })
-        terms = {"compute": rec["compute_s"], "memory": rec["counted_memory_s"]}
+        terms = {"compute": rec["compute_s"], "memory": rec["counted_memory_s"],
+                 "collective": rec["collective_s"]}
         rec["counted_bottleneck"] = max(terms, key=terms.get)
         if verbose:
             print(rec["mem"], {k: f"{v:.3e}" for k, v in terms.items()},
@@ -387,6 +578,21 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
             print("FAILED:", rec["error"])
     rec["total_s"] = round(time.time() - t0, 1)
     return rec
+
+
+def _case(arch, sname, path, kw):
+    print(f"=== {arch} x {sname} ===", flush=True)
+    return arch, sname, path, run_case(arch, sname, **kw)
+
+
+def _quiet_case(item):
+    arch, sname, path, kw = item
+    return arch, sname, path, run_case(arch, sname, verbose=False, **kw)
+
+
+# the train steps' collective count takes longest: started first, they
+# leave the short cases to fill the processes at the end
+_KIND_ORDER = {"train": 0, "prefill": 1, "decode": 2}
 
 
 def main(argv=None) -> int:
@@ -404,6 +610,8 @@ def main(argv=None) -> int:
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="run the cases in this many processes at once")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)
@@ -417,6 +625,7 @@ def main(argv=None) -> int:
     if args.microbatch > 1:
         tag += f"__mb{args.microbatch}"
     n_ok = 0
+    todo = []
     for arch, shape in pairs:
         sname = shape.name
         path = os.path.join(args.out,
@@ -425,16 +634,21 @@ def main(argv=None) -> int:
             print(f"skip {arch} x {sname} ({tag})")
             n_ok += 1
             continue
-        print(f"=== {arch} x {sname} ({tag}, moe={args.moe_impl}) ===",
-              flush=True)
-        rec = run_case(arch, sname, multi_pod=args.multi_pod,
-                       moe_impl=args.moe_impl, mesh_shape=args.mesh_shape,
-                       weights_mode=args.weights_mode,
-                       microbatch=args.microbatch)
-        with open(path, "w") as f:
-            json.dump(rec, f, indent=1)
-        n_ok += int(rec["ok"])
-        print(f"    -> ok={rec['ok']} total={rec['total_s']}s", flush=True)
+        todo.append((_KIND_ORDER[shape.kind], arch, sname, path))
+    kw = dict(multi_pod=args.multi_pod, moe_impl=args.moe_impl, mesh_shape=args.mesh_shape,
+              weights_mode=args.weights_mode, microbatch=args.microbatch)
+    items = [(arch, sname, path, kw) for _, arch, sname, path in sorted(todo)]
+    with contextlib.ExitStack() as stack:
+        if args.jobs > 1:
+            pool = stack.enter_context(multiprocessing.get_context("spawn").Pool(args.jobs))
+            done = pool.imap_unordered(_quiet_case, items)
+        else:
+            done = (_case(*item) for item in items)
+        for arch, sname, path, rec in done:
+            with open(path, "w") as f:
+                json.dump(rec, f, indent=1)
+            n_ok += int(rec["ok"])
+            print(f"    -> {arch} x {sname}: ok={rec['ok']} total={rec['total_s']}s", flush=True)
     print(f"dry-run complete: {n_ok}/{len(pairs)} ok")
     return 0 if n_ok == len(pairs) else 1
 

@@ -1,16 +1,23 @@
-"""Mesh shapes, after ``repro/launch/mesh.py``.
+"""Meshes, after ``repro/launch/mesh.py``.
 
-The port has no device mesh: a mesh here is its shape, the ordered axis
-names and sizes that ``repro_torch.distributed.sharding`` reads.  The
-reference's ``mesh_axis_types`` and ``make_mesh_compat`` paper over JAX
-versions (``jax.sharding.AxisType``) and have no counterpart.
+``make_local_mesh`` builds a real ``torch.distributed`` ``DeviceMesh`` with
+axes ``("data", "model")`` over the process group this process already
+belongs to (``torchrun`` and ``init_process_group`` make one; a single
+process may be a group of one).  ``MeshShape`` is a mesh's shape alone, the
+ordered axis names and sizes that ``repro_torch.distributed.sharding``
+reads, which the dry run uses for the production meshes.  The reference's
+``mesh_axis_types`` and ``make_mesh_compat`` paper over JAX versions
+(``jax.sharding.AxisType``) and have no counterpart.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Tuple
 
-import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from repro_torch import device as D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,11 +51,17 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(("data", "model"), (16, 16))
 
 
-def make_local_mesh(data: int = 1, model: int = 1) -> MeshShape:
-    """A (data, model) mesh over the cards of this host; raises unless
-    ``data * model`` of them are there."""
-    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if data * model > have:
-        raise RuntimeError(f"a {data}x{model} mesh needs {data * model} CUDA devices; "
-                           f"this host has {have}")
-    return MeshShape(("data", "model"), (data, model))
+def make_local_mesh(data: int = 1, model: int = 1, device: D.DeviceLike = None) -> DeviceMesh:
+    """A (data, model) ``DeviceMesh`` over the initialised process group,
+    whose world size must be ``data * model``: one rank a card (NCCL) by
+    default, or CPU ranks (gloo) for ``device="cpu"``."""
+    dev = D.resolve(device)
+    if not dist.is_initialized():
+        raise RuntimeError(f"a {data}x{model} mesh needs an initialised process group "
+                           "(torchrun, or torch.distributed.init_process_group)")
+    world = dist.get_world_size()
+    if world != data * model:
+        raise RuntimeError(f"a {data}x{model} mesh needs {data * model} ranks; "
+                           f"the process group has {world}")
+    return init_device_mesh(dev.type, (data, model), mesh_dim_names=("data", "model"))
+

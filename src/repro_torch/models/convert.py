@@ -50,13 +50,15 @@ def _map(tree, fn, *rest):
     return fn(tree, *rest)
 
 
-def _unstack(stack_np, pl: ST.StackPlan, conv):
+def _unstack(stack, pl: ST.StackPlan, of_block, one):
+    """``{"blocks", "rem"}`` -> per-layer trees: ``of_block(leaf, r)`` takes
+    repetition ``r`` of a block leaf, ``one`` a remainder layer's leaf."""
     layers = [None] * (pl.n_rep * pl.period + len(pl.rem))
-    for j, block in enumerate(stack_np["blocks"]):
+    for j, block in enumerate(stack["blocks"]):
         for r in range(pl.n_rep):
-            layers[r * pl.period + j] = _map(block, lambda a: conv(a[r]))
-    for j, layer in enumerate(stack_np["rem"]):
-        layers[pl.n_rep * pl.period + j] = _map(layer, conv)
+            layers[r * pl.period + j] = _map(block, lambda a: of_block(a, r))
+    for j, layer in enumerate(stack["rem"]):
+        layers[pl.n_rep * pl.period + j] = _map(layer, one)
     return layers
 
 
@@ -65,13 +67,39 @@ def params_from_jax(params_np, cfg: ModelConfig, *, device: D.DeviceLike = None)
     (for example ``jax.tree.map(np.asarray, params)``)."""
     dev = D.resolve(device)
     conv = lambda a: _tensor(a, dev)  # noqa: E731
-    params = {"embed": conv(params_np["embed"]),
-              "stack": _unstack(params_np["stack"], ST.decoder_plan(cfg), conv),
-              "final_norm": conv(params_np["final_norm"])}
+    return _from_jax(params_np, cfg, lambda a, r: conv(a[r]), conv)
+
+
+def _from_jax(tree, cfg: ModelConfig, of_block, one):
+    out = {"embed": one(tree["embed"]),
+           "stack": _unstack(tree["stack"], ST.decoder_plan(cfg), of_block, one),
+           "final_norm": one(tree["final_norm"])}
     if cfg.family == "encdec":
-        params["enc_stack"] = _unstack(params_np["enc_stack"], ST.encoder_plan(cfg), conv)
-        params["enc_norm"] = conv(params_np["enc_norm"])
-    return params
+        out["enc_stack"] = _unstack(tree["enc_stack"], ST.encoder_plan(cfg), of_block, one)
+        out["enc_norm"] = one(tree["enc_norm"])
+    return out
+
+
+def _layer_spec(spec, r):
+    # a block leaf's spec without its leading layer entry (ROADMAP P10)
+    return type(spec)(*spec[1:])
+
+
+def specs_from_jax(specs, cfg: ModelConfig):
+    """A spec tree of the reference's stacked layout
+    (``sharding.param_specs`` of ``param_shapes``) for the port's per-layer
+    parameters: a block leaf's spec loses its entry for the layer axis, so
+    an axis named there is replicated on the per-layer leaf (ROADMAP P10);
+    a remainder layer's, the embedding's and the norms' are kept."""
+    return _from_jax(specs, cfg, _layer_spec, lambda s: s)
+
+
+def cache_specs_from_jax(specs, cfg: ModelConfig):
+    """``sharding.cache_specs`` of ``cache_shapes`` for the port's per-layer
+    caches, a block leaf's layer entry dropped as for the parameters (the
+    rules take a Mamba2 ``conv`` cache, whose path ends in "v", for K/V and
+    may put the batch's axis on its layer axis: ROADMAP P10)."""
+    return _unstack(specs, ST.decoder_plan(cfg), _layer_spec, lambda s: s)
 
 
 def _array(t: torch.Tensor) -> np.ndarray:

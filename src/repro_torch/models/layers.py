@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.api import constrain, whole_pieces
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -78,6 +79,7 @@ def mlp(params, x):
         h = F.silu(x @ params["w_gate"]) * h
     else:
         h = F.gelu(h, approximate="tanh")
+    h = constrain(h, "data", None, "model")
     return h @ params["w_out"]
 
 
@@ -96,13 +98,13 @@ def init_attention(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int, dt
 def project_heads(x, w):
     """x: (B, S, d); w: (d, heads, hd) -> contiguous (B, S, heads, hd)."""
     d, heads, hd = w.shape
-    return (x @ w.reshape(d, heads * hd)).view(*x.shape[:-1], heads, hd)
+    return whole_pieces(x @ w.reshape(d, heads * hd), -1, heads).view(*x.shape[:-1], heads, hd)
 
 
 def merge_heads(o, wo):
     """o: (B, S, H, hd); wo: (H, hd, d) -> (B, S, d)."""
     h, hd, d = wo.shape
-    return o.reshape(*o.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
+    return whole_pieces(o.reshape(*o.shape[:-2], h * hd), -1, h) @ wo.reshape(h * hd, d)
 
 
 def _repeat_kv(k, n_heads: int):
@@ -168,12 +170,15 @@ def attention_chunked(q, k, v, q_pos, k_pos, window: Optional[int] = None,
     return torch.cat(outs, dim=1)
 
 
-def attention_decode(q, k_cache, v_cache, cache_len):
+def attention_decode(q, k_cache, v_cache, cache_len, seq_sharded: bool = False):
     """Single-token decode attention, the jnp path of the reference.
 
     q: (B, 1, H, hd); caches: (B, L, Kv, hd) where L is the cache capacity
     (ring buffer for sliding-window layers).  ``cache_len`` (B,) is the
     number of valid entries (== absolute position + 1 for full caches).
+    ``seq_sharded``: the cache's seq dim is context-parallel over ``model``;
+    on a mesh the scores and probabilities stay sharded along it, as the
+    reference constrains them.
     """
     hq, hd = q.shape[-2], q.shape[-1]
     L = k_cache.shape[1]
@@ -183,7 +188,11 @@ def attention_decode(q, k_cache, v_cache, cache_len):
     idx = torch.arange(L, device=q.device)[None, :]
     valid = idx < torch.clamp(cache_len, max=L)[:, None]    # ring buffer: all L valid once full
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    if seq_sharded:
+        scores = constrain(scores, "data", None, None, "model")
     p = torch.softmax(scores, dim=-1)
+    if seq_sharded:
+        p = constrain(p, "data", None, None, "model")
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
@@ -203,7 +212,8 @@ def attention(q, k, v, q_pos, k_pos, window=None, causal=True, impl="kernel"):
 def attn_block(params, x, positions, theta, window=None, causal=True, impl="kernel"):
     """Self-attention.  x: (B, S, d). Returns (out, (k, v)) so callers can
     build caches."""
-    q = apply_rope(project_heads(x, params["wq"]), positions, theta)
+    q = constrain(project_heads(x, params["wq"]), "data", None, "model", None)
+    q = apply_rope(q, positions, theta)
     k = apply_rope(project_heads(x, params["wk"]), positions, theta)
     v = project_heads(x, params["wv"])
     o = attention(q, k, v, positions, positions, window=window, causal=causal, impl=impl)
@@ -216,7 +226,7 @@ def cross_attn_block(params, x, enc, impl="kernel"):
     and values from the encoder output enc (B, F, d), no RoPE on either side
     and no mask (Sq = S over Sk = F).  Returns (out, (xk, xv)), the encoder's
     K/V as the decode caches keep them."""
-    q = project_heads(x, params["wq"])
+    q = constrain(project_heads(x, params["wq"]), "data", None, "model", None)
     k = project_heads(enc, params["wk"])
     v = project_heads(enc, params["wv"])
     o = attention(q, k, v, None, None, causal=False, impl=impl)

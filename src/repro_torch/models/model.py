@@ -34,6 +34,7 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.api import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import stack as ST
 
@@ -71,8 +72,12 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: D.DeviceLike = None):
     return params
 
 
+def _embed(params, tokens):
+    return constrain(params["embed"][tokens], "data", None, None)
+
+
 def _embed_with_prefix(params, cfg: ModelConfig, batch):
-    x = params["embed"][batch["tokens"]]
+    x = _embed(params, batch["tokens"])
     if cfg.family == "vlm" and "patches" in batch:
         prefix = batch["patches"].to(x.dtype)
         return torch.cat([prefix, x], dim=1), prefix.shape[1]
@@ -123,7 +128,7 @@ def forward(params, cfg: ModelConfig, batch, *, impl="kernel", moe_impl="einsum"
 
 
 def logits(params, cfg: ModelConfig, hidden):
-    return hidden @ params["embed"].T
+    return constrain(hidden @ params["embed"].T, "data", None, "model")
 
 
 def prefill(params, cfg: ModelConfig, batch, *, impl="kernel", moe_impl="einsum",
@@ -146,12 +151,12 @@ def decode_step(params, cfg: ModelConfig, caches, cache_len: int, tokens, *,
     Returns (logits (B, V), caches).  Attention layers update their KV
     caches in place and cross-attention reads its ``xk``/``xv`` as prefill
     left them; Mamba2 layers return a new conv window and state."""
-    x = params["embed"][tokens]
+    x = _embed(params, tokens)
     x, caches, _ = ST.apply_stack(params["stack"], cfg, x, None, impl=impl,
                                   moe_impl=moe_impl, caches=caches,
                                   cache_len=cache_len, mode="decode")
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["embed"].T)[:, 0], caches
+    return constrain((x @ params["embed"].T)[:, 0], "data", "model"), caches
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed.api import constrain, contiguous_grad
 from repro_torch.models import layers as L
 
 # routing-group tokens: capacity (and the dispatch tensor) is per group.  The
@@ -84,13 +85,18 @@ def _route(params, xf, mcfg: MoEConfig):
 
 def _expert_ffn(params, xd):
     """xd: (..., E, C, d) -> (..., E, C, d) via each expert's (Sw)iGLU, or
-    its tanh-GELU MLP where the experts are not gated."""
-    h = xd @ params["w_in"]
+    its tanh-GELU MLP where the experts are not gated: one batched product
+    an expert over the rows of every group, as the reference's einsums
+    contract them (a broadcast matmul would copy each expert's weights once
+    for every routing group)."""
+    *lead, e, c, d = xd.shape
+    xe = xd.movedim(-3, 0).reshape(e, -1, d)                       # (E, ...*C, d)
+    h = torch.bmm(xe, params["w_in"])
     if "w_gate" in params:
-        h = F.silu(xd @ params["w_gate"]) * h
+        h = F.silu(torch.bmm(xe, params["w_gate"])) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ params["w_out"]
+    return contiguous_grad(torch.bmm(h, params["w_out"]).reshape(e, *lead, c, d)).movedim(0, -3)
 
 
 def moe_apply(params, x, mcfg: MoEConfig, impl: str = "einsum",
@@ -104,7 +110,7 @@ def moe_apply(params, x, mcfg: MoEConfig, impl: str = "einsum",
         tg = t          # irregular small inputs: one group
     g = t // tg
     cap = _capacity(tg, mcfg)
-    xg = xf.reshape(g, tg, d)
+    xg = constrain(xf.reshape(g, tg, d), "data", None, None)
 
     if impl == "einsum":
         top_w, top_i, aux = _route(params, xg, mcfg)
@@ -114,9 +120,15 @@ def moe_apply(params, x, mcfg: MoEConfig, impl: str = "einsum",
         c_oh = _one_hot(pos, cap, x.dtype)
         combine = torch.einsum("gtke,gtkc,gtk->gtec", e_oh, c_oh, top_w.to(x.dtype))
         dispatch = torch.einsum("gtke,gtkc->gtec", e_oh, c_oh)
-        xd = torch.einsum("gtec,gtd->gecd", dispatch, xg)
-        ye = _expert_ffn(params, xd)
-        y = torch.einsum("gecd,gtec->gtd", ye, combine).reshape(t, d)
+        # on a mesh, the one-hots and the experts' outputs in the reference's
+        # expert-parallel layout (groups over data, experts over model):
+        # DTensor, left to itself, shards the capacity dim of the combine
+        # einsum's operands, which its flattening cannot do unevenly
+        combine = constrain(combine, "data", None, "model", None)
+        dispatch = constrain(dispatch, "data", None, "model", None)
+        xd = constrain(torch.einsum("gtec,gtd->gecd", dispatch, xg), "data", "model", None, None)
+        ye = constrain(_expert_ffn(params, xd), "data", "model", None, None)
+        y = constrain(torch.einsum("gecd,gtec->gtd", ye, combine), "data", None, None).reshape(t, d)
     elif impl == "gather":
         ys, auxs = [], []
         for xr in xg:
@@ -129,7 +141,10 @@ def moe_apply(params, x, mcfg: MoEConfig, impl: str = "einsum",
         raise ValueError(f"unknown moe impl {impl!r}")
 
     if "shared" in params:
-        y = y + L.mlp(params["shared"], xf)
+        # on a mesh, the shared experts' partial sums reduced onto y's layout
+        # (tokens over data): DTensor would otherwise scatter the tokens over
+        # the model axis too, which the reshape back to (B, S, d) cannot split
+        y = y + constrain(L.mlp(params["shared"], xf), "data", None)
     return y.reshape(b, s, d), aux
 
 

@@ -20,9 +20,11 @@ from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.api import constrain, mesh_axis_size
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MO
@@ -199,6 +201,9 @@ def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
     elif "mlp" in params:
         h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
         x = x + L.mlp(params["mlp"], h)
+    # the reference's default layout between layers (its REPRO_SEQ_PARALLEL
+    # switch, off by default, is not ported)
+    x = constrain(x, "data", None, None)
     return x, new_cache, aux
 
 
@@ -227,25 +232,42 @@ def _build_kv_cache(k, v, window, capacity):
 def _attn_decode(params, cfg, h, cache, cache_len: int, impl):
     """h: (B, 1, d). Insert the new K/V and attend over the cache.
 
-    The reference inserts with a masked select so that a sharded cache stays
-    local; on one card the port writes the new slot in place, so the
-    returned cache is the one passed in."""
+    Outside a mesh the port writes the new slot in place, so the returned
+    cache is the one passed in (ROADMAP P3).  On a mesh (DTensor caches) it
+    inserts with the reference's masked select, which keeps every shard of
+    a sharded cache local, and returns new caches."""
     b = h.shape[0]
     pos = torch.full((b, 1), cache_len, dtype=torch.int32, device=h.device)
-    q = L.apply_rope(L.project_heads(h, params["wq"]), pos, cfg.rope_theta)
-    k1 = L.apply_rope(L.project_heads(h, params["wk"]), pos, cfg.rope_theta)
+    q = L.project_heads(h, params["wq"])
+    k1 = L.project_heads(h, params["wk"])
     v1 = L.project_heads(h, params["wv"])
+    # the reference's context-parallel decode plan: where the KV heads do
+    # not divide the model axis and the cache is long, the cache's seq dim
+    # is model-sharded; replicate the query heads so q.K stays seq-local
+    seq_sharded = (cache["k"].shape[-2] % max(mesh_axis_size("model"), 1) != 0
+                   and cache["k"].shape[-3] > 8192)
+    if seq_sharded:
+        q = constrain(q, "data", None, None, None)
+        k1 = constrain(k1, "data", None, None, None)
+        v1 = constrain(v1, "data", None, None, None)
+    q = L.apply_rope(q, pos, cfg.rope_theta)
+    k1 = L.apply_rope(k1, pos, cfg.rope_theta)
     cap = cache["k"].shape[1]
     idx = cache_len % cap
-    cache["k"][:, idx] = k1[:, 0]
-    cache["v"][:, idx] = v1[:, 0]
+    if isinstance(cache["k"], DTensor):
+        mask = (torch.arange(cap, device=h.device) == idx)[None, :, None, None]
+        cache = dict(cache, k=torch.where(mask, k1, cache["k"]),
+                     v=torch.where(mask, v1, cache["v"]))
+    else:
+        cache["k"][:, idx] = k1[:, 0]
+        cache["v"][:, idx] = v1[:, 0]
     if impl == "kernel":
         lengths = torch.full((b,), min(cache_len + 1, cap), dtype=torch.int32,
                              device=h.device)
         o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)[:, None]
     elif impl in ("naive", "chunked"):     # the reference decodes on its jnp path
         valid = torch.full((b,), cache_len + 1, dtype=torch.int32, device=h.device)
-        o = L.attention_decode(q, cache["k"], cache["v"], valid)
+        o = L.attention_decode(q, cache["k"], cache["v"], valid, seq_sharded=seq_sharded)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
     return L.merge_heads(o, params["wo"]), cache

@@ -10,6 +10,9 @@ reference writes its ``ml_dtypes.bfloat16`` arrays: descriptor ``<V2`` and
 the raw bits, so each member is byte for byte the reference's; ``np.load``
 reads such a leaf as ``V2`` and ``load`` takes its bits as bf16 (the
 reference's own ``load`` cannot read it back, ROADMAP R6).
+
+On a mesh ``save`` gathers each DTensor leaf on every rank and rank 0
+writes the file; ``load`` places the leaves it reads under a spec tree.
 """
 from __future__ import annotations
 
@@ -18,10 +21,14 @@ import zipfile
 from typing import Any, Dict
 
 import numpy as np
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import device as D
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import convert
+from repro_torch.training import optim
 
 _SEP = "::"
 
@@ -87,6 +94,12 @@ def _write_member(zf: zipfile.ZipFile, name: str, a: np.ndarray) -> None:
 
 
 def save(path: str, params: Any, cfg: ModelConfig) -> None:
+    """Every rank of a mesh calls it (the gather is collective); rank 0
+    writes."""
+    params = optim.tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t,
+                            params)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     if not path.endswith(".npz"):
         path += ".npz"
@@ -97,11 +110,14 @@ def save(path: str, params: Any, cfg: ModelConfig) -> None:
             _write_member(zf, key, a)
 
 
-def load(path: str, cfg: ModelConfig, *, device: D.DeviceLike = None):
+def load(path: str, cfg: ModelConfig, *, device: D.DeviceLike = None, mesh=None,
+         specs=None):
     """The port's parameters from a checkpoint of either package; each leaf
-    keeps the type it was saved in."""
+    keeps the type it was saved in.  With a ``DeviceMesh``, DTensors placed
+    by ``specs`` (a spec tree of the port's layout)."""
     dev = D.resolve(device)
     with np.load(path if path.endswith(".npz") else path + ".npz") as data:
         tree = _unflatten({k: data[k] for k in data.files})
     _check_layout(tree, cfg)
-    return convert.params_from_jax(tree, cfg, device=dev)
+    params = convert.params_from_jax(tree, cfg, device=dev)
+    return params if mesh is None else shd.distribute(params, mesh, specs)

@@ -9,6 +9,8 @@ the token stream prefix so the backbone has cross-modal signal to exploit.
 ``DataConfig`` and ``SyntheticStream`` are numpy, copied from the
 reference: batch ``i`` of a seed is the reference's, bit for bit.
 ``input_specs`` gives meta tensors in place of ``jax.ShapeDtypeStruct``.
+``to_device`` with a ``mesh`` places a batch as the reference's
+``P("data", None)`` does: rows over ``data``, replicated over ``model``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 
 
 @dataclasses.dataclass
@@ -78,11 +81,19 @@ class SyntheticStream:
             i += 1
 
 
-def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+def to_device(batch: Dict[str, np.ndarray], device, mesh=None) -> Dict[str, torch.Tensor]:
     """A numpy batch as tensors on ``device``: token ids and labels int64,
-    the stub embeddings f32 (the model casts them to its type)."""
-    return {k: torch.from_numpy(np.asarray(v, np.int64 if v.dtype.kind == "i" else v.dtype))
-            .to(device) for k, v in batch.items()}
+    the stub embeddings f32 (the model casts them to its type); with a
+    ``DeviceMesh``, DTensors with their rows over its ``data`` axis (every
+    rank passes the same batch and keeps its rows)."""
+    out = {k: torch.from_numpy(np.asarray(v, np.int64 if v.dtype.kind == "i" else v.dtype))
+           .to(device) for k, v in batch.items()}
+    if mesh is None:
+        return out
+    data = shd.MeshAxes.of(mesh).data
+    rows = data if len(data) > 1 else data[0]
+    return shd.distribute(out, mesh, {k: shd.P(rows, *[None] * (v.dim() - 1))
+                                      for k, v in out.items()})
 
 
 def input_specs(cfg: ModelConfig, seq_len: int, batch: int, kind: str,

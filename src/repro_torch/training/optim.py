@@ -16,6 +16,13 @@ decay (``train.decay_mask`` gives the reference's choice for a model).
 ``global_norm`` sums the leaves in the port's order, layer by layer; the
 reference sums its stacked leaves, so the two agree within f32 rounding,
 not bit for bit.
+
+On a mesh the leaves are DTensors: the moments take their parameters'
+placements (``init_state``), a gradient that comes back partial (summed
+over the batch's shards) is reduce-scattered onto its parameter's
+placements first, as FSDP does, and each leaf's square sum is a partial
+sum over its shards that DTensor reduces across the mesh before the
+leaves are summed in the same order.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +76,7 @@ def schedule(cfg: AdamWConfig, step):
 
 
 def init_state(params):
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     leaf = tree_leaves(params)[0]
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=leaf.device)}
@@ -79,6 +87,12 @@ def global_norm(tree):
     return torch.sqrt(torch.stack(leaves).sum())
 
 
+def _placed_like(g, p):
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig, *, decay=None):
     """Returns (params, state, metrics), the first two updated in place.
@@ -86,6 +100,7 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, *, decay=None):
     by default those with ``ndim >= 2``."""
     if decay is None:
         decay = tree_map(lambda p: p.dim() >= 2, params)
+    grads = tree_map(_placed_like, grads, params)
     step = state["step"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.api import constrain
 from repro_torch.models import model as M
 from repro_torch.models import stack as ST
 from repro_torch.training import data, optim
@@ -28,8 +29,11 @@ def cross_entropy(hidden, embed, labels, chunk: int = LOSS_CHUNK):
     b, s, d = hidden.shape
 
     def chunk_loss(h, y):
-        lg = h.float() @ embed.float().T
+        lg = constrain(h.float() @ embed.float().T, "data", None, "model")
         logz = torch.logsumexp(lg, dim=-1)
+        # aten.gather along a vocab-sharded dim leaves DTensor a masked
+        # partial that it fails to reduce: gather from replicated logits
+        lg = constrain(lg, "data", None, None)
         gold = lg.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
         mask = (y >= 0).float()
         return ((logz - gold) * mask).sum(), mask.sum()

@@ -13,6 +13,7 @@ import hashlib
 import jax
 import pytest
 import torch
+import torch.distributed as dist
 from jax.sharding import PartitionSpec as JP
 
 from repro import configs as RC
@@ -200,11 +201,20 @@ def test_production_meshes():
 
 
 def test_local_mesh_needs_the_cards(monkeypatch):
+    """A local mesh is a ``DeviceMesh`` over the initialised process group:
+    the cards by default (raising where there are none), CPU ranks when the
+    CPU is asked for, as many ranks as ``data * model``."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA devices"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         TMESH.make_local_mesh()
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert TMESH.make_local_mesh(2, 1).shape == {"data": 2, "model": 1}
-    with pytest.raises(RuntimeError, match="a 2x2 mesh needs 4"):
-        TMESH.make_local_mesh(2, 2)
+    with pytest.raises(RuntimeError, match="initialised process group"):
+        TMESH.make_local_mesh(device="cpu")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = TMESH.make_local_mesh(1, 1, "cpu")
+        assert TS.mesh_shape(mesh).shape == {"data": 1, "model": 1}
+        assert mesh.device_type == "cpu"
+        with pytest.raises(RuntimeError, match="a 2x2 mesh needs 4 ranks"):
+            TMESH.make_local_mesh(2, 2, "cpu")
+    finally:
+        dist.destroy_process_group()

@@ -39,7 +39,7 @@ WEIGHTS_MODES = ("auto", "tp", "fsdp", "expert2d", "expertff")
 # the products an eager program runs (the port counts 2% more at qwen2-moe's
 # train step).  Held within 10%.
 FLOPS_RTOL = 0.1
-HLO_KEYS = ("hlo_flops_per_dev", "hlo_bytes_per_dev", "collectives", "lower_s", "compile_s")
+HLO_KEYS = ("hlo_flops_per_dev", "hlo_bytes_per_dev", "lower_s", "compile_s")
 
 REF_CODE = r"""
 import json
@@ -101,14 +101,15 @@ def runs(tmp_path_factory):
                            env=dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu"),
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     sweep = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-                              "--out", str(out)], cwd=REPO, env=dict(os.environ, PYTHONPATH=src),
+                              "--out", str(out), "--jobs", "4"], cwd=REPO,
+                             env=dict(os.environ, PYTHONPATH=src),
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         # meanwhile, a first count here loads PyTorch's meta kernels
         DR.count(DR.build_case(configs.get_config("yi-34b", reduced=True),
                                InputShape("warm", 64, 4, "train"), MeshShape(("data",), (1,))))
         ref_out, ref_err = ref.communicate(timeout=600)
-        sweep_out, sweep_err = sweep.communicate(timeout=600)
+        sweep_out, sweep_err = sweep.communicate(timeout=1200)
     finally:
         for p in (ref, sweep):
             p.kill()
@@ -177,7 +178,14 @@ def test_sweep_record(arch, shape, runs):
     assert rec["ok"], rec.get("error")
     assert rec["mesh"] == "data=16xmodel=16" and rec["devices"] == 256
     assert not set(HLO_KEYS) & set(rec)
-    assert rec["collective_s"] is None and rec["collective_bytes_per_dev"] is None
+    # collectives by kind, from DTensor on a fake 16x16 mesh; both axes
+    # leave an 8-card node, so every byte goes over the NIC figure
+    coll = rec["collectives"]
+    assert rec["collective_bytes_per_dev"] == sum(coll[k] for k in DR.KINDS) > 0
+    assert sum(coll["_by_axis"].values()) == rec["collective_bytes_per_dev"]
+    assert rec["link_bw"] == {"data": DR.NIC_BW, "model": DR.NIC_BW}
+    assert rec["collective_s"] == pytest.approx(rec["collective_bytes_per_dev"] / DR.NIC_BW)
+    assert coll["collective-permute"] == 0 and rec["links"] == DR.LINKS
     assert rec["collective_note"] == DR.COLLECTIVE_NOTE
     assert rec["mem"]["temp_gb"] is None and rec["mem"]["argument_gb"] > 0
     flops, nbytes = rec["counted_flops_per_dev"], rec["counted_bytes_per_dev"]
@@ -185,7 +193,8 @@ def test_sweep_record(arch, shape, runs):
     assert rec["compute_s"] == flops / 989e12 and rec["counted_memory_s"] == nbytes / 3.35e12
     # the eager count's terms do not take the compiled program's names
     assert not {"memory_s", "bottleneck"} & set(rec)
-    terms = {"compute": rec["compute_s"], "memory": rec["counted_memory_s"]}
+    terms = {"compute": rec["compute_s"], "memory": rec["counted_memory_s"],
+             "collective": rec["collective_s"]}
     assert rec["counted_bottleneck"] == max(terms, key=terms.get)
     assert rec["useful_flops_ratio"] == rec["model_flops_per_dev"] / flops
 

@@ -416,7 +416,9 @@ def test_launch_train_main_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", ["--data-par", "--model-par"])
 def test_launch_train_refuses_a_mesh(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    """A plain process has one rank: a mesh of two needs torchrun
+    (tests/test_torch_mesh.py runs one)."""
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         launch_train.main(["--arch", "starcoder2-3b", "--reduced", flag, "2",
                            "--device", "cpu"])
 
