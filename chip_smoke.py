@@ -104,7 +104,7 @@ Phases, each of which fails the script if it fails:
    every leaf equal bit for bit; the group destroyed after;
 15. dryrun (last): the port's dry run (``repro_torch.launch.dryrun``'s
    ``main`` with ``--all``, on meta tensors, after the timed phases, its
-   cases in SWEEP_JOBS processes) over every architecture x input shape
+   cases in a process a CPU) over every architecture x input shape
    pair on the 16x16 production mesh, all 35 ok, each record with its
    collective bytes and time (DTensor on a fake process group), yi-34b's
    decode_32k and train_4k collectives printed by kind; yi-34b x decode_32k's 1- and 2-block probes
@@ -2176,7 +2176,6 @@ def phase_mesh(train):
 # dryrun: the meta-tensor dry run, its count held against the card, and the
 # control-plane examples on the card
 # ---------------------------------------------------------------------------
-SWEEP_JOBS = 8
 SWEEP_DIR = ROOT / "build" / "chip_smoke_dryrun"
 PROBE_ARCH, PROBE_SHAPE = "yi-34b", "decode_32k"
 # PyTorch's caching allocator rounds a block up to 512 bytes, keeps a large
@@ -2197,7 +2196,7 @@ def _dryrun_sweep():
     shutil.rmtree(SWEEP_DIR, ignore_errors=True)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = DR.main(["--all", "--out", str(SWEEP_DIR), "--jobs", str(SWEEP_JOBS)])
+        rc = DR.main(["--all", "--out", str(SWEEP_DIR)])
     out = buf.getvalue()
     pairs = configs.all_dryrun_pairs()
     recs = [json.loads((SWEEP_DIR / f"{a}__{s.name}__singlepod__einsum.json").read_text())

@@ -8,6 +8,12 @@ placements of ``resolve(names)``, as the reference's
 plain tensor, it is the identity, so the models run unchanged outside a
 mesh.  The mapping of logical axis names onto mesh axes (the multi-pod mesh
 folds "pod" into "data") is the reference's.
+
+``einsum`` and ``batchwise`` run a function on each rank's local shards
+where DTensor's own rules would flatten two sharded dims into one, or have
+no rule at all, in the PyTorch releases the port runs on (2.11 refuses
+both; ROADMAP lists the sites).  Outside a mesh they call the function as
+it is.
 """
 from __future__ import annotations
 
@@ -15,8 +21,9 @@ import contextlib
 from typing import Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils._pytree import tree_map_only
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import PartitionSpec as P
@@ -124,22 +131,21 @@ def whole_pieces(x, dim: int, parts: int):
     return _WholePieces.apply(x, dim % x.dim(), parts)
 
 
-class _ContiguousGrad(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
+def _strides(shape):
+    """The strides of a new contiguous tensor of ``shape``."""
+    out, n = [], 1
+    for size in reversed(shape):
+        out.append(n)
+        n *= size
+    return tuple(reversed(out))
 
-    @staticmethod
-    def backward(ctx, grad):
-        return grad.contiguous()
 
-
-def contiguous_grad(x):
-    """A DTensor ``x`` whose gradient comes back contiguous: DTensor takes
-    the reshape that undoes a product's flattening for a view, which a
-    permuted gradient refuses, where aten would copy.  Any other tensor as
-    it is."""
-    return _ContiguousGrad.apply(x) if isinstance(x, DTensor) else x
+def _dense(t):
+    """``t`` with the strides of a new contiguous tensor of its shape, size-1
+    dims included (``contiguous`` leaves those as they are)."""
+    if t.stride() == _strides(t.shape):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def constrain(x, *names: Optional[str]):
@@ -179,3 +185,127 @@ def constrain(x, *names: Optional[str]):
     if not out.to_local().is_contiguous():
         out = out.clone(memory_format=torch.contiguous_format)
     return out
+
+
+class _ToLocal(torch.autograd.Function):
+    """A DTensor's local shard once redistributed to ``pl``.  Its gradient
+    comes back as a DTensor of placements ``grad_pl``, with the global
+    shape and dense strides (``to_local`` infers global strides from local
+    ones, which a size-1 local dim leaves ambiguous), and is redistributed
+    to the DTensor's own placements on each mesh dim where it is not a
+    partial sum.  A partial sum stays one and meets the gradient's other
+    parts as one: torch 2.11 can add two, but not turn a shard into one."""
+
+    @staticmethod
+    def forward(ctx, x, pl, grad_pl):
+        ctx.mesh, ctx.grad_pl, ctx.shape = x.device_mesh, grad_pl, x.shape
+        ctx.back = [g if g.is_partial() else Replicate() if p.is_partial() else p
+                    for g, p in zip(grad_pl, x.placements)]
+        local = x.redistribute(x.device_mesh, pl).to_local()
+        return local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = DTensor.from_local(_dense(grad), ctx.mesh, ctx.grad_pl, run_check=False,
+                               shape=ctx.shape, stride=_strides(ctx.shape))
+        if ctx.back != list(ctx.grad_pl):
+            g = g.redistribute(ctx.mesh, ctx.back)
+        return g, None, None
+
+
+def _from_local(t, mesh, placements):
+    """A DTensor of local shard ``t`` (dense) under ``placements``, every
+    shard even, with dense global strides."""
+    shape = list(t.shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            shape[p.dim] *= mesh.size(i)
+    return DTensor.from_local(_dense(t), mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=_strides(shape))
+
+
+def _local(fn, mesh, args, labels, out_labels, chosen):
+    """``fn`` on the local shards of ``args``.  ``labels[j]`` names the dims
+    of ``args[j]`` (a string, a letter a dim), ``out_labels`` those of every
+    output, ``chosen`` the label sharded on each mesh dim (or None).  An
+    argument is sharded on that mesh dim along its label's dim, or
+    replicated where it lacks the label, and then its gradient comes back
+    as a partial sum; an output is sharded along the label, or a partial sum
+    where the label is summed over, or replicated where no label was
+    chosen."""
+    local = []
+    for a, lab in zip(args, labels):
+        if a is None:
+            local.append(None)
+            continue
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        pl = [Shard(lab.index(c)) if c is not None and c in lab else Replicate()
+              for c in chosen]
+        grad = [Partial() if c is not None and c not in lab else p
+                for p, c in zip(pl, chosen)]
+        local.append(_ToLocal.apply(a, pl, grad))
+    out_pl = [Replicate() if c is None else Shard(out_labels.index(c)) if c in out_labels
+              else Partial() for c in chosen]
+    return tree_map_only(torch.Tensor, lambda t: _from_local(t, mesh, out_pl), fn(*local))
+
+
+def _choose(mesh, args, labels, out_labels):
+    """A label a mesh dim (or None): one an argument is sharded along on
+    that dim, first one that every argument and the output carry (no
+    collective), dividing its dim's size by the mesh dims that shard it."""
+    sizes = {c: n for a, lab in zip(args, labels) for c, n in zip(lab, a.shape)}
+    split = {c: 1 for c in sizes}
+    chosen = []
+    for i in range(mesh.ndim):
+        found = [lab[p.dim] for a, lab in zip(args, labels) if isinstance(a, DTensor)
+                 for p in (a.placements[i],) if p.is_shard()]
+        found = sorted(found, key=lambda c: not (c in out_labels and all(
+            c in lab for lab in labels)))
+        ok = [c for c in found if sizes[c] % (split[c] * mesh.size(i)) == 0]
+        c = ok[0] if ok else None
+        if c is not None:
+            split[c] *= mesh.size(i)
+        chosen.append(c)
+    return chosen
+
+
+def einsum(equation: str, *operands):
+    """``torch.einsum``; on DTensors, shard by shard: a label each mesh dim
+    keeps sharded (``_choose``), the operands redistributed to it, the local
+    einsum, the result sharded along the label or a partial sum over it.
+    DTensor's own einsum flattens the batch dims into one, which torch 2.11
+    cannot do where two of them are sharded (batch over data and heads over
+    model in attention, groups and experts in the MoE dispatch)."""
+    mesh = next((x.device_mesh for x in operands if isinstance(x, DTensor)), None)
+    if mesh is None:
+        return torch.einsum(equation, *operands)
+    ins, out = equation.replace(" ", "").split("->")
+    ins = ins.split(",")
+    return _local(lambda *xs: torch.einsum(equation, *xs), mesh, operands, ins, out,
+                  _choose(mesh, operands, ins, out))
+
+
+def batchwise(fn, rows, params=()):
+    """``fn(*rows, *params)``, where each tensor of ``rows`` (an entry may be
+    None) and of the result has the batch along dim 0, and ``fn`` treats
+    each row apart.  On DTensors it runs on each rank's rows: the rows
+    sharded over the data axes where the batch divides them and replicated
+    on the other mesh dims, ``params`` replicated (their gradients partial
+    sums).  For operations torch 2.11 has no DTensor rule for
+    (``aten.flip``, ``aten.roll``, ``index_put`` with sharded indices) or
+    one that fails on a mesh of two dims (``constant_pad_nd``)."""
+    mesh = next((x.device_mesh for x in (*rows, *params) if isinstance(x, DTensor)), None)
+    if mesh is None:
+        return fn(*rows, *params)
+    data = set(shd.MeshAxes.of(mesh).data)
+    size, split, chosen = rows[0].shape[0], 1, []
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if name in data and size % (split * mesh.size(i)) == 0:
+            split *= mesh.size(i)
+            chosen.append("b")
+        else:
+            chosen.append(None)
+    labels = ["b" if r is None else "b" + "x" * (r.dim() - 1) for r in rows]
+    labels += ["x" * p.dim() for p in params]
+    return _local(fn, mesh, (*rows, *params), labels, "b", chosen)

@@ -26,7 +26,7 @@ path strings as the reference builds them (``stack/blocks/0/attn/wq``).
 
 A mesh is a ``torch.distributed`` ``DeviceMesh`` with named dims, or
 anything with ``.shape`` (an ordered ``{axis: size}`` dict) and
-``.axis_names``, such as ``repro_torch.launch.mesh.MeshShape``.
+``.axis_names``, such as ``MeshShape``, a mesh's shape alone.
 
 ``named`` turns specs into DTensor placements on a ``DeviceMesh``, as the
 reference's turns them into ``NamedSharding``s: one placement a mesh dim,
@@ -41,12 +41,11 @@ is replicated on the per-layer leaf).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.launch.mesh import MeshShape
 
 
 class PartitionSpec(tuple):
@@ -62,6 +61,29 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """Axis names and their sizes, in mesh order."""
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"{len(self.axis_names)} axis names for "
+                             f"{len(self.axis_sizes)} sizes")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.axis_sizes:
+            n *= s
+        return n
 
 
 @dataclasses.dataclass(frozen=True)

@@ -63,9 +63,9 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves, tree_map_only
+from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs
@@ -94,9 +94,7 @@ LINKS = ("NVLink 4, 450e9 B/s each way a card, for a mesh axis inside an "
          "axis that crosses nodes (ranks in mesh order, 8 a node)")
 COLLECTIVE_NOTE = ("result bytes of the collectives DTensor issues on rank 0 of a fake "
                    "process group, op by op: not GSPMD's partitioning, so not the "
-                   "reference's XLA count; an operation DTensor refuses runs on its "
-                   "operands gathered whole (_fallbacks, which depend on the PyTorch "
-                   "release)")
+                   "reference's XLA count")
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
 _COLLECTIVE_KINDS = {"all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
                      "all_gather_into_tensor": "all-gather",
@@ -325,14 +323,9 @@ class CollectiveCounter(TorchDispatchMode):
     group name -> axis name).
 
     An operation on DTensors goes to DTensor, whose local operations and
-    collectives come back here.  Where DTensor refuses one (no sharding
-    rule, a view it cannot split, a redistribution it cannot plan: which
-    ones depends on the PyTorch release), the operation runs again on its
-    DTensor operands gathered whole (``Replicate()`` on every mesh dim, the
-    gathers counted; an operation with no rule even then runs on the whole
-    local tensors), and ``fallbacks`` counts it by name.  An operation
-    that writes into an operand cannot run on a gathered copy: its refusal
-    stands."""
+    collectives come back here.  An operation DTensor refuses fails the
+    count; the models run those on each rank's shards
+    (``repro_torch.distributed.api.einsum`` and ``batchwise``)."""
 
     def __init__(self, groups: Dict[str, str]):
         super().__init__()
@@ -340,7 +333,6 @@ class CollectiveCounter(TorchDispatchMode):
         self.bytes = {k: 0 for k in KINDS}
         self.counts = {k: 0 for k in KINDS}
         self.by_axis = {a: 0 for a in groups.values()}
-        self.fallbacks: Dict[str, int] = {}
         self._in_dtensor = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -348,7 +340,12 @@ class CollectiveCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             if self._in_dtensor:
                 return NotImplemented
-            return self._dtensor_op(func, args, kwargs)
+            self._in_dtensor = True
+            try:
+                with self:
+                    return func(*args, **kwargs)
+            finally:
+                self._in_dtensor = False
         out = func(*args, **kwargs)
         if isinstance(func, torch._ops.HigherOrderOperator):
             return out
@@ -361,31 +358,6 @@ class CollectiveCounter(TorchDispatchMode):
             self.counts[kind] += 1
             self.by_axis[self.groups[group]] += nbytes
         return out
-
-    def _dtensor_op(self, func, args, kwargs):
-        self._in_dtensor = True
-        try:
-            with self:
-                try:
-                    return func(*args, **kwargs)
-                except (RuntimeError, NotImplementedError, IndexError):
-                    if func._schema.is_mutable:
-                        raise
-                self.fallbacks[str(func)] = self.fallbacks.get(str(func), 0) + 1
-                whole = tree_map_only(DTensor, lambda t: t.redistribute(
-                    t.device_mesh, [Replicate()] * t.device_mesh.ndim), (args, kwargs))
-                try:
-                    return func(*whole[0], **whole[1])
-                except NotImplementedError:
-                    # no sharding rule at all: the whole tensors are local
-                    mesh = next(t.device_mesh for t in tree_leaves(whole)
-                                if isinstance(t, DTensor))
-                    local = tree_map_only(DTensor, lambda t: t.to_local(), whole)
-                    return tree_map_only(torch.Tensor, lambda t: DTensor.from_local(
-                        t, mesh, [Replicate()] * mesh.ndim, run_check=False),
-                        func(*local[0], **local[1]))
-        finally:
-            self._in_dtensor = False
 
 
 @contextlib.contextmanager
@@ -429,8 +401,7 @@ def collectives(case: Case, dmesh) -> Dict:
     counter = CollectiveCounter(groups)
     with dapi.use_mesh(dmesh), counter:
         case.fn(*args)
-    return {"bytes": counter.bytes, "counts": counter.counts, "by_axis": counter.by_axis,
-            "fallbacks": counter.fallbacks}
+    return {"bytes": counter.bytes, "counts": counter.counts, "by_axis": counter.by_axis}
 
 
 def model_flops_per_device(cfg: ModelConfig, shape: InputShape,
@@ -546,8 +517,7 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
             "counted_bytes_per_dev": bytes_acc,
             "collective_bytes_per_dev": float(sum(coll["bytes"].values())),
             "collectives": {**coll["bytes"], "_counts": coll["counts"],
-                            "_by_axis": coll["by_axis"],
-                            "_fallbacks": coll["probe_raw"][2]["fallbacks"]},
+                            "_by_axis": coll["by_axis"]},
             "probe": {"n_rep": probe["n_rep"], "raw": probe["probe_raw"],
                       "collectives_raw": {k: v["bytes"] for k, v in coll["probe_raw"].items()}},
             "mem": {
@@ -610,8 +580,6 @@ def main(argv=None) -> int:
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--skip-existing", action="store_true")
-    ap.add_argument("--jobs", type=int, default=1,
-                    help="run the cases in this many processes at once")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)
@@ -638,9 +606,11 @@ def main(argv=None) -> int:
     kw = dict(multi_pod=args.multi_pod, moe_impl=args.moe_impl, mesh_shape=args.mesh_shape,
               weights_mode=args.weights_mode, microbatch=args.microbatch)
     items = [(arch, sname, path, kw) for _, arch, sname, path in sorted(todo)]
+    # a process a CPU this process may run on, no more than there are cases
+    jobs = min(len(os.sched_getaffinity(0)), len(items))
     with contextlib.ExitStack() as stack:
-        if args.jobs > 1:
-            pool = stack.enter_context(multiprocessing.get_context("spawn").Pool(args.jobs))
+        if jobs > 1:
+            pool = stack.enter_context(multiprocessing.get_context("spawn").Pool(jobs))
             done = pool.imap_unordered(_quiet_case, items)
         else:
             done = (_case(*item) for item in items)

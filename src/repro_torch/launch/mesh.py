@@ -3,44 +3,20 @@
 ``make_local_mesh`` builds a real ``torch.distributed`` ``DeviceMesh`` with
 axes ``("data", "model")`` over the process group this process already
 belongs to (``torchrun`` and ``init_process_group`` make one; a single
-process may be a group of one).  ``MeshShape`` is a mesh's shape alone, the
-ordered axis names and sizes that ``repro_torch.distributed.sharding``
-reads, which the dry run uses for the production meshes.  The reference's
+process may be a group of one).  ``MeshShape``
+(``repro_torch.distributed.sharding``) is a mesh's shape alone, the ordered
+axis names and sizes that the sharding rules read, which the dry run uses
+for the production meshes.  The reference's
 ``mesh_axis_types`` and ``make_mesh_compat`` paper over JAX versions
 (``jax.sharding.AxisType``) and have no counterpart.
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import Dict, Tuple
-
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch import device as D
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshShape:
-    """Axis names and their sizes, in mesh order."""
-    axis_names: Tuple[str, ...]
-    axis_sizes: Tuple[int, ...]
-
-    def __post_init__(self):
-        if len(self.axis_names) != len(self.axis_sizes):
-            raise ValueError(f"{len(self.axis_names)} axis names for "
-                             f"{len(self.axis_sizes)} sizes")
-
-    @property
-    def shape(self) -> Dict[str, int]:
-        return dict(zip(self.axis_names, self.axis_sizes))
-
-    @property
-    def size(self) -> int:
-        n = 1
-        for s in self.axis_sizes:
-            n *= s
-        return n
+from repro_torch.distributed.sharding import MeshShape
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.api import constrain, whole_pieces
+from repro_torch.distributed.api import constrain, einsum, whole_pieces
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -131,11 +131,11 @@ def attention_naive(q, k, v, q_pos, k_pos, window: Optional[int] = None,
     k = _repeat_kv(k, h)
     v = _repeat_kv(v, h)
     scale = 1.0 / q.shape[-1] ** 0.5
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    scores = einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         scores = scores + _mask_bias(q_pos, k_pos, window)[:, None]
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    return einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
 def attention_chunked(q, k, v, q_pos, k_pos, window: Optional[int] = None,
@@ -162,11 +162,11 @@ def attention_chunked(q, k, v, q_pos, k_pos, window: Optional[int] = None,
         # chunk i covers queries [i*C, (i+1)*C); the first key it can see
         start = min(max(i * query_chunk + query_chunk - slab, 0), sk - slab)
         keys = slice(start, start + slab)
-        s = torch.einsum("bqhd,bkhd->bhqk", q[:, rows].float(), k[:, keys].float()) * scale
+        s = einsum("bqhd,bkhd->bhqk", q[:, rows].float(), k[:, keys].float()) * scale
         if causal:
             s = s + _mask_bias(q_pos[:, rows], k_pos[:, keys], window)[:, None]
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v[:, keys]))
+        outs.append(einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v[:, keys]))
     return torch.cat(outs, dim=1)
 
 
@@ -184,7 +184,7 @@ def attention_decode(q, k_cache, v_cache, cache_len, seq_sharded: bool = False):
     L = k_cache.shape[1]
     k = _repeat_kv(k_cache, hq)
     v = _repeat_kv(v_cache, hq)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / hd ** 0.5)
+    scores = einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / hd ** 0.5)
     idx = torch.arange(L, device=q.device)[None, :]
     valid = idx < torch.clamp(cache_len, max=L)[:, None]    # ring buffer: all L valid once full
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
@@ -193,7 +193,7 @@ def attention_decode(q, k_cache, v_cache, cache_len, seq_sharded: bool = False):
     p = torch.softmax(scores, dim=-1)
     if seq_sharded:
         p = constrain(p, "data", None, None, "model")
-    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+    return einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
 def attention(q, k, v, q_pos, k_pos, window=None, causal=True, impl="kernel"):

@@ -34,7 +34,7 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.api import constrain
+from repro_torch.distributed.api import batchwise, constrain
 from repro_torch.models import layers as L
 from repro_torch.models import stack as ST
 
@@ -73,7 +73,10 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: D.DeviceLike = None):
 
 
 def _embed(params, tokens):
-    return constrain(params["embed"][tokens], "data", None, None)
+    # on a mesh, on each rank's rows: torch 2.11's DTensor has no rule for
+    # the gradient's index_put with sharded indices
+    x = batchwise(lambda tokens, table: table[tokens], (tokens,), (params["embed"],))
+    return constrain(x, "data", None, None)
 
 
 def _embed_with_prefix(params, cfg: ModelConfig, batch):

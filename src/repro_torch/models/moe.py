@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.distributed.api import constrain, contiguous_grad
+from repro_torch.distributed.api import constrain, einsum
 from repro_torch.models import layers as L
 
 # routing-group tokens: capacity (and the dispatch tensor) is per group.  The
@@ -96,7 +96,7 @@ def _expert_ffn(params, xd):
         h = F.silu(torch.bmm(xe, params["w_gate"])) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return contiguous_grad(torch.bmm(h, params["w_out"]).reshape(e, *lead, c, d)).movedim(0, -3)
+    return torch.bmm(h, params["w_out"]).reshape(e, *lead, c, d).movedim(0, -3)
 
 
 def moe_apply(params, x, mcfg: MoEConfig, impl: str = "einsum",
@@ -118,17 +118,17 @@ def moe_apply(params, x, mcfg: MoEConfig, impl: str = "einsum",
         pos = _positions_in_expert_grouped(top_i, mcfg, cap)        # (G, Tg, k)
         e_oh = _one_hot(top_i, mcfg.n_experts, x.dtype)
         c_oh = _one_hot(pos, cap, x.dtype)
-        combine = torch.einsum("gtke,gtkc,gtk->gtec", e_oh, c_oh, top_w.to(x.dtype))
-        dispatch = torch.einsum("gtke,gtkc->gtec", e_oh, c_oh)
+        combine = einsum("gtke,gtkc,gtk->gtec", e_oh, c_oh, top_w.to(x.dtype))
+        dispatch = einsum("gtke,gtkc->gtec", e_oh, c_oh)
         # on a mesh, the one-hots and the experts' outputs in the reference's
         # expert-parallel layout (groups over data, experts over model):
         # DTensor, left to itself, shards the capacity dim of the combine
         # einsum's operands, which its flattening cannot do unevenly
         combine = constrain(combine, "data", None, "model", None)
         dispatch = constrain(dispatch, "data", None, "model", None)
-        xd = constrain(torch.einsum("gtec,gtd->gecd", dispatch, xg), "data", "model", None, None)
+        xd = constrain(einsum("gtec,gtd->gecd", dispatch, xg), "data", "model", None, None)
         ye = constrain(_expert_ffn(params, xd), "data", "model", None, None)
-        y = constrain(torch.einsum("gecd,gtec->gtd", ye, combine), "data", None, None).reshape(t, d)
+        y = constrain(einsum("gecd,gtec->gtd", ye, combine), "data", None, None).reshape(t, d)
     elif impl == "gather":
         ys, auxs = [], []
         for xr in xg:

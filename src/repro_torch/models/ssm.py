@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed.api import batchwise, einsum
 from repro_torch.kernels import ops
 # the chunked algorithm is K3's plain version; one copy serves both names
 from repro_torch.kernels.ssd_scan import segsum as _segsum  # noqa: F401
@@ -117,7 +118,10 @@ def mamba_forward(params, x, d_model: int, scfg: SSMConfig, init_state=None,
     nh = scfg.n_heads(d_model)
     z, xbc, dt_raw = _split_proj(params, x, d_model, scfg)
     conv_in = xbc
-    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+    # on a mesh the conv and the scan run on each rank's rows: torch 2.11's
+    # DTensor rule for the conv's constant_pad_nd fails on a mesh of 2 dims,
+    # and it has no rule for the scan's aten.flip
+    xbc = batchwise(_causal_conv, (xbc,), (params["conv_w"], params["conv_b"]))
     xh = xbc[..., :din].reshape(b, s, nh, scfg.head_dim)
     bmat = xbc[..., din:din + gn].reshape(b, s, scfg.n_groups, scfg.d_state)
     cmat = xbc[..., din + gn:].reshape(b, s, scfg.n_groups, scfg.d_state)
@@ -128,8 +132,9 @@ def mamba_forward(params, x, d_model: int, scfg: SSMConfig, init_state=None,
                                 cmat.contiguous(), chunk=scfg.chunk_size,
                                 init_state=init_state)
     elif impl in ("naive", "chunked"):
-        y, final = ssd_chunked(xh, dt, a_neg, bmat, cmat, scfg.chunk_size,
-                               init_state=init_state)
+        def scan(xh, dt, bmat, cmat, init, a_neg):
+            return ssd_chunked(xh, dt, a_neg, bmat, cmat, scfg.chunk_size, init_state=init)
+        y, final = batchwise(scan, (xh, dt, bmat, cmat, init_state), (a_neg,))
     else:
         raise ValueError(f"unknown ssd impl {impl!r}")
     y = y + (params["D"][None, None, :, None] * xh.float()).to(y.dtype)
@@ -140,7 +145,8 @@ def mamba_forward(params, x, d_model: int, scfg: SSMConfig, init_state=None,
     # zeros for a shorter prompt, copied out of the projection's output
     k = scfg.d_conv
     conv_cache = (conv_in[:, s - (k - 1):, :] if s >= k - 1
-                  else F.pad(conv_in, (0, 0, k - 1 - s, 0))).contiguous()
+                  else batchwise(lambda c: F.pad(c, (0, 0, k - 1 - s, 0)), (conv_in,))
+                  ).contiguous()
     return out, {"conv": conv_cache, "state": final}
 
 
@@ -155,7 +161,7 @@ def mamba_decode(params, x, cache, d_model: int, scfg: SSMConfig):
     window = torch.cat([cache["conv"], xbc], dim=1)                   # (B, K, C)
     new_conv = window[:, 1:, :]
     w = params["conv_w"].float()                                      # (C, K)
-    conv_out = torch.einsum("bkc,ck->bc", window.float(), w)
+    conv_out = einsum("bkc,ck->bc", window.float(), w)
     xbc1 = F.silu(conv_out + params["conv_b"].float()).to(x.dtype)    # (B, C)
     xh = xbc1[:, :din].reshape(b, nh, scfg.head_dim)
     bmat = xbc1[:, din:din + gn].reshape(b, scfg.n_groups, scfg.d_state)
@@ -167,9 +173,9 @@ def mamba_decode(params, x, cache, d_model: int, scfg: SSMConfig):
     a_neg = -torch.exp(params["A_log"])
     da = torch.exp(dt * a_neg[None])
     state = cache["state"].float()
-    state = state * da[..., None, None] + torch.einsum(
+    state = state * da[..., None, None] + einsum(
         "bhp,bhn->bhpn", xh.float() * dt[..., None], bmat.float())
-    y = torch.einsum("bhpn,bhn->bhp", state, cmat.float())
+    y = einsum("bhpn,bhn->bhp", state, cmat.float())
     y = y + params["D"][None, :, None] * xh.float()
     y = y.to(x.dtype).reshape(b, 1, din)
     y = L.rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm"])

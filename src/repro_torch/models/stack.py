@@ -24,7 +24,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.api import constrain, mesh_axis_size
+from repro_torch.distributed.api import batchwise, constrain, mesh_axis_size
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MO
@@ -214,19 +214,27 @@ def _build_kv_cache(k, v, window, capacity):
         cap = min(window, capacity if capacity else window)
         if s >= cap:
             shift = s % cap
-            return {"k": torch.roll(k[:, -cap:], shift, dims=1),
-                    "v": torch.roll(v[:, -cap:], shift, dims=1)}
-        pad = (0, 0, 0, 0, 0, cap - s)
-        return {"k": F.pad(k, pad), "v": F.pad(v, pad)}
-    cap = capacity if capacity else s
-    if cap < s:
-        raise ValueError(
-            f"a prompt of {s} positions does not fit a KV cache of {cap} "
-            "slots; raise max_ctx or shorten the prompt")
-    if cap == s:
-        return {"k": k, "v": v}
-    pad = (0, 0, 0, 0, 0, cap - s)
-    return {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+
+            def arrange(x):
+                return torch.roll(x[:, -cap:], shift, dims=1)
+        else:
+            def arrange(x):
+                return F.pad(x, (0, 0, 0, 0, 0, cap - s))
+    else:
+        cap = capacity if capacity else s
+        if cap < s:
+            raise ValueError(
+                f"a prompt of {s} positions does not fit a KV cache of {cap} "
+                "slots; raise max_ctx or shorten the prompt")
+        if cap == s:
+            return {"k": k, "v": v}
+
+        def arrange(x):
+            return F.pad(x, (0, 0, 0, 0, 0, cap - s))
+    # on a mesh, on each rank's rows: torch 2.11's DTensor has no rule for
+    # aten.roll, and its constant_pad_nd rule fails on a mesh of 2 dims
+    k, v = batchwise(lambda k, v: (arrange(k), arrange(v)), (k, v))
+    return {"k": k, "v": v}
 
 
 def _attn_decode(params, cfg, h, cache, cache_len: int, impl):

@@ -101,7 +101,7 @@ def runs(tmp_path_factory):
                            env=dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu"),
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     sweep = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-                              "--out", str(out), "--jobs", "4"], cwd=REPO,
+                              "--out", str(out)], cwd=REPO,
                              env=dict(os.environ, PYTHONPATH=src),
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
@@ -181,6 +181,7 @@ def test_sweep_record(arch, shape, runs):
     # collectives by kind, from DTensor on a fake 16x16 mesh; both axes
     # leave an 8-card node, so every byte goes over the NIC figure
     coll = rec["collectives"]
+    assert set(coll) == {*DR.KINDS, "_counts", "_by_axis"}
     assert rec["collective_bytes_per_dev"] == sum(coll[k] for k in DR.KINDS) > 0
     assert sum(coll["_by_axis"].values()) == rec["collective_bytes_per_dev"]
     assert rec["link_bw"] == {"data": DR.NIC_BW, "model": DR.NIC_BW}

@@ -502,6 +502,48 @@ def test_moe_einsum_and_gather_dispatch_agree_at_full_width():
     _close(a1, a2, torch.float32)
 
 
+def _broadcast_expert_ffn(params, xd):
+    """The experts as one broadcast matmul over the routing groups, the
+    form ``moe._expert_ffn`` had before it took one batched product an
+    expert over every group's rows."""
+    h = xd @ params["w_in"]
+    if "w_gate" in params:
+        h = torch.nn.functional.silu(xd @ params["w_gate"]) * h
+    else:
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+    return h @ params["w_out"]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("tokens", [4, 32, 1024, 8192])
+def test_moe_layer_equals_the_broadcast_expert_products(arch, tokens, monkeypatch):
+    """One MoE layer at its published widths in bf16 (einsum dispatch),
+    the experts' batched products against the broadcast matmul: up to one
+    routing group (GROUP_SIZE tokens, every batch the engines serve) the
+    products have the same shapes and the outputs are equal bit for bit;
+    over two groups the products have twice the rows and the outputs agree
+    within the bf16 tolerance."""
+    _need_cuda()
+    cfg = configs.get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = MO.init_moe(gen, cfg.d_model, cfg.moe, cfg.mlp_gated, torch.bfloat16)
+    x = _randn(17, (4, tokens // 4, cfg.d_model), torch.bfloat16)
+    with torch.inference_mode():
+        y, aux = MO.moe_apply(params, x, cfg.moe)
+        monkeypatch.setattr(MO, "_expert_ffn", _broadcast_expert_ffn)
+        y0, aux0 = MO.moe_apply(params, x, cfg.moe)
+    diff = float((y.float() - y0.float()).abs().max())
+    print(f"{arch} T={tokens}: {tokens // min(tokens, MO.GROUP_SIZE)} routing groups, "
+          f"max abs diff {diff:.4e}")
+    assert torch.equal(aux, aux0) and torch.isfinite(y.float()).all()
+    if tokens <= MO.GROUP_SIZE:
+        assert torch.equal(y, y0)
+    else:
+        _close(y, y0, torch.bfloat16)
+    del params
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # training, the LSTM predictor and solve_enum on the card
 # ---------------------------------------------------------------------------

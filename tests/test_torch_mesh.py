@@ -11,11 +11,9 @@ carries a leading layer axis, which the port's per-layer leaves do not
 have, and where FSDP put ``data`` on that axis the port replicates the
 per-layer leaf over ``data`` (ROADMAP P10; ``test_p10_...`` states what it
 costs).  The train step runs on a gloo group of one rank in this process;
-tests that need several ranks spawn processes and are marked slow.
+tests that need several ranks are in ``test_torch_mesh_ranks.py``.
 """
-import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -33,7 +31,6 @@ from repro import configs as RC
 from repro.distributed import api as rapi
 from repro.distributed import sharding as RS
 from repro.models import model as RM
-from repro.training import checkpoint as JCK
 from repro.training import optim as JO
 from repro.training import train as JT
 from repro_torch import configs as TC
@@ -461,20 +458,17 @@ def _(x):
     return torch.empty_like(x)
 
 
-def test_an_operation_without_a_rule_runs_on_gathered_operands():
-    """The PyTorch release on the card lacks rules this one has (aten.roll
-    and aten.flip there): such an operation runs on its operands gathered
-    whole, the gathers counted and the operation named."""
+def test_an_operation_without_a_rule_fails_the_count():
+    """The count runs nothing on gathered operands: an operation DTensor
+    refuses fails it, and the case's record says so (``ok`` false)."""
     ms = MESHES["4x2"]
     with DR.fake_mesh(ms) as dm:
         groups = {dm.get_group(i).group_name: n for i, n in enumerate(dm.mesh_dim_names)}
         x = shd.distribute(torch.empty(8, 6, device="meta"), dm, shd.P("data", None))
         counter = DR.CollectiveCounter(groups)
-        with counter:
-            y = torch.ops.repro_torch_mesh_test.twice(x)
-    assert isinstance(y, DTensor) and y.placements == (Replicate(), Replicate())
-    assert counter.fallbacks == {"repro_torch_mesh_test.twice.default": 1}
-    assert counter.bytes["all-gather"] == 8 * 6 * 4 and counter.by_axis["data"] == 8 * 6 * 4
+        with pytest.raises(NotImplementedError, match="twice"), counter:
+            torch.ops.repro_torch_mesh_test.twice(x)
+    assert counter.counts == dict.fromkeys(DR.KINDS, 0)
 
 
 def test_link_figures_by_axis():
@@ -528,131 +522,3 @@ def test_the_port_imports_no_fake_process_group(port_imports):
     """``torch.testing._internal.distributed`` (the fake process group) is
     imported by the dry run's collective count only, when it runs."""
     assert port_imports.returncode == 0, port_imports.stderr[-2000:]
-
-
-# ---------------------------------------------------------------------------
-# several ranks (slow: a process a rank)
-# ---------------------------------------------------------------------------
-RANK_CODE = r"""
-import json, sys
-import torch, torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate
-from repro_torch import configs
-from repro_torch.distributed import api as dapi, sharding as shd
-from repro_torch.launch import train as LT
-from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.models import model as M, moe as MO
-from repro_torch.training import checkpoint, data, optim, train as TT
-
-arch, dp, mp, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
-dist.init_process_group("gloo")
-mesh = make_local_mesh(dp, mp, "cpu")
-cfg = configs.get_config(arch, reduced=True)
-batch = data.SyntheticStream(cfg, data.DataConfig(seq_len=32, batch_size=8)).batch(0)
-step = TT.make_train_step(cfg, optim.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10),
-                          impl="naive")
-# one routing (ROADMAP R5): the meshed step routes every token to the experts
-# the plain step picked, at its own probabilities
-picks, top_k = [], MO._top_k
-def record(probs, k):
-    vals, idx = top_k(probs, k)
-    picks.append(idx)
-    return vals, idx
-def replay(probs, k):
-    idx = picks.pop(0)
-    probs = probs.redistribute(probs.device_mesh, [Replicate()] * probs.device_mesh.ndim)
-    return probs.gather(-1, idx), idx
-MO._top_k = record
-plain = M.init(cfg, seed=0, device="cpu")
-p1, _, m1 = step(plain, optim.init_state(plain), data.to_device(batch, "cpu"))
-MO._top_k = replay
-meshed = M.init(cfg, seed=0, device="cpu")
-meshed = shd.distribute(meshed, mesh, LT.param_specs(meshed, cfg, mesh))
-with dapi.use_mesh(mesh):
-    p2, s2, m2 = step(meshed, optim.init_state(meshed), data.to_device(batch, "cpu", mesh))
-MO._top_k = top_k
-full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
-leaves = optim.tree_leaves(p2)
-rec = {"loss": [float(m1["loss"]), float(full(m2["loss"]))],
-       "grad_norm": [float(m1["grad_norm"]), float(full(m2["grad_norm"]))],
-       "param_diff": max(float((a - full(b)).abs().max())
-                         for a, b in zip(optim.tree_leaves(p1), leaves)),
-       "sharded": sum(any(not p.is_replicate() for p in t.placements) for t in leaves),
-       "leaves": len(leaves), "unrouted": len(picks)}
-checkpoint.save(out + ".mesh.npz", p2, cfg)
-checkpoint.save(out + ".plain.npz", p1, cfg)
-if dist.get_rank() == 0:
-    json.dump(rec, open(out, "w"))
-dist.destroy_process_group()
-"""
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _run_ranks(n, argv, timeout=600):
-    """``argv`` in ``n`` processes of one gloo group (rank, world size and
-    rendezvous in the environment, as torchrun sets them)."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), WORLD_SIZE=str(n),
-               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(argv, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=REPO,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(n)]
-    try:
-        outs = [p.communicate(timeout=timeout) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for p, (_, err) in zip(procs, outs):
-        assert p.returncode == 0, err[-3000:]
-    return outs
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("arch,dp,mp", [("qwen2-moe-a2.7b", 4, 2), ("starcoder2-3b", 2, 2)])
-def test_meshed_step_on_several_ranks(arch, dp, mp, tmp_path):
-    """One reduced f32 step at batch (8, 32) on a dp x mp gloo mesh (the
-    reference's own test runs qwen2-moe on 4x2, tests/test_distributed.py),
-    against the port's unsharded step in the same process: loss, grad norm
-    and every updated parameter within 2e-4, qwen2-moe under one routing;
-    the checkpoint saved from the mesh reads back through the reference's
-    ``checkpoint.load`` (f32, ROADMAP R6) as the plain step's parameters."""
-    out = str(tmp_path / "rank0.json")
-    _run_ranks(dp * mp, [sys.executable, "-c", RANK_CODE, arch, str(dp), str(mp), out])
-    rec = json.load(open(out))
-    print(arch, f"{dp}x{mp}", rec)
-    assert rec["loss"][1] == pytest.approx(rec["loss"][0], abs=2e-4)
-    assert rec["grad_norm"][1] == pytest.approx(rec["grad_norm"][0], rel=2e-4)
-    assert rec["param_diff"] <= 2e-4 and rec["unrouted"] == 0 and rec["sharded"] > 0
-    jcfg = RC.get_config(arch, reduced=True)
-    like = jax.eval_shape(lambda: RM.init(jax.random.PRNGKey(0), jcfg))
-    cfg = TC.get_config(arch, reduced=True)
-    got = convert.params_from_jax(jax.tree.map(np.asarray, JCK.load(out + ".mesh.npz", like)),
-                                  cfg, device="cpu")
-    plain = TCK.load(out + ".plain.npz", cfg, device="cpu")
-    for a, b in zip(TO.tree_leaves(got), TO.tree_leaves(plain)):
-        torch.testing.assert_close(a, b, atol=2e-4, rtol=0)
-
-
-@pytest.mark.slow
-def test_torchrun_runs_the_launcher_on_a_2x2_mesh(tmp_path):
-    """``torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch
-    starcoder2-3b --reduced --data-par 2 --model-par 2 --steps 3 --device
-    cpu`` runs to its end; rank 0 logs every step and saves."""
-    path = str(tmp_path / "ckpt.npz")
-    argv = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "4",
-            "--master-port", str(_free_port()), "-m", "repro_torch.launch.train",
-            "--arch", "starcoder2-3b", "--reduced", "--data-par", "2", "--model-par", "2",
-            "--steps", "3", "--device", "cpu", "--log-every", "1", "--save", path]
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
-    out = subprocess.run(argv, env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
-    assert out.returncode == 0, out.stderr[-3000:]
-    print(out.stdout)
-    assert [line.split()[1] for line in out.stdout.splitlines()
-            if line.startswith("step")] == ["0", "1", "2"]
-    assert "saved" in out.stdout and os.path.exists(path)
-    back = TCK.load(path, TC.get_config("starcoder2-3b", reduced=True), device="cpu")
-    assert all(bool(torch.isfinite(t).all()) for t in TO.tree_leaves(back))
