@@ -32,6 +32,8 @@ from repro_torch.distributed.sharding import PartitionSpec as P
 _ACTIVE_RULES: Optional[dict] = None
 # the DeviceMesh the models' activations live on, or None
 _ACTIVE_MESH = None
+# the reference's sequence-parallel layout between layers, on the active mesh
+_SEQ_PARALLEL = False
 
 
 def set_axis_rules(rules: Optional[dict]) -> None:
@@ -45,18 +47,28 @@ def get_axis_rules() -> Optional[dict]:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh):
+def use_mesh(mesh, seq_parallel: bool = False):
     """``mesh`` active, with its axis rules, for the block; plain tensors
     that meet DTensors there (positions, masks, the step count) count as
-    replicated on it.  The previous mesh and rules come back after."""
-    global _ACTIVE_MESH, _ACTIVE_RULES
-    prev = _ACTIVE_MESH, _ACTIVE_RULES
+    replicated on it.  ``seq_parallel`` keeps the residual stream sharded
+    by sequence over ``model`` between layers outside decode (the
+    reference's ``REPRO_SEQ_PARALLEL``, which the launchers read).  The
+    previous mesh, rules and layout come back after."""
+    global _ACTIVE_MESH, _ACTIVE_RULES, _SEQ_PARALLEL
+    prev = _ACTIVE_MESH, _ACTIVE_RULES, _SEQ_PARALLEL
     _ACTIVE_MESH, _ACTIVE_RULES = mesh, shd.axis_rules(mesh)
+    _SEQ_PARALLEL = bool(seq_parallel)
     try:
         with implicit_replication():
             yield mesh
     finally:
-        _ACTIVE_MESH, _ACTIVE_RULES = prev
+        _ACTIVE_MESH, _ACTIVE_RULES, _SEQ_PARALLEL = prev
+
+
+def seq_parallel() -> bool:
+    """Whether the active mesh keeps the sequence-parallel layout; False
+    where no mesh is active."""
+    return _ACTIVE_MESH is not None and _SEQ_PARALLEL
 
 
 def resolve(spec_names: Tuple[Optional[str], ...]) -> P:
@@ -185,6 +197,63 @@ def constrain(x, *names: Optional[str]):
     if not out.to_local().is_contiguous():
         out = out.clone(memory_format=torch.contiguous_format)
     return out
+
+
+class _DataPartialGrad(torch.autograd.Function):
+    """The identity; on the way back a gradient that is a partial sum over
+    a data axis that shards the input is reduce-scattered onto the input's
+    shards there, and left as it is elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x):
+        mesh = x.device_mesh
+        data = set(shd.MeshAxes.of(mesh).data)
+        ctx.mesh = mesh
+        ctx.pl = tuple(p if name in data and p.is_shard() else None
+                       for name, p in zip(mesh.mesh_dim_names, x.placements))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not isinstance(grad, DTensor):
+            return grad
+        pl = tuple(p if p is not None and g.is_partial() else g
+                   for p, g in zip(ctx.pl, grad.placements))
+        return grad if pl == tuple(grad.placements) else grad.redistribute(ctx.mesh, pl)
+
+
+def data_partial_grad(x):
+    """``x`` itself; on a DTensor its gradient, where it is a partial sum
+    over a data axis that shards ``x`` (by its rows), comes back
+    reduce-scattered onto ``x``'s shards there.  The gradient of a product
+    with an FSDP weight may leave it a partial sum over data, which torch
+    2.11 cannot add to a gradient sharded over data (it would turn the
+    shard into a partial sum)."""
+    if not isinstance(x, DTensor):
+        return x
+    return _DataPartialGrad.apply(x)
+
+
+def seq_gather(x):
+    """``x`` (B, S, ...) with each rank's rows whole along the sequence
+    where the sequence-parallel layout is on (an all-gather over
+    ``model``), else ``x``: the entry of a region that reads whole
+    sequences, a sublayer's projections or the loss.  torch 2.11 cannot
+    flatten (B, S) into a product's rows with S sharded."""
+    if not seq_parallel():
+        return x
+    return constrain(x, "data", *([None] * (x.dim() - 1)))
+
+
+def seq_scatter(x):
+    """A sublayer's output ``x`` (B, S, d) on the residual stream's
+    sequence-parallel layout where it is on (a partial sum over ``model``
+    reduce-scattered along S, a replica sliced), else ``x``.  Left to
+    itself, DTensor would all-reduce the partial sum at the residual add
+    and slice it after."""
+    if not seq_parallel():
+        return x
+    return constrain(x, "data", "model", *([None] * (x.dim() - 2)))
 
 
 class _ToLocal(torch.autograd.Function):

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.distributed.api import batchwise, einsum
+from repro_torch.distributed.api import batchwise, einsum, data_partial_grad
 from repro_torch.kernels import ops
 # the chunked algorithm is K3's plain version; one copy serves both names
 from repro_torch.kernels.ssd_scan import segsum as _segsum  # noqa: F401
@@ -140,7 +140,9 @@ def mamba_forward(params, x, d_model: int, scfg: SSMConfig, init_state=None,
     y = y + (params["D"][None, None, :, None] * xh.float()).to(y.dtype)
     y = y.reshape(b, s, din)
     y = L.rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm"])
-    out = y @ params["out_proj"]
+    # on a mesh the out projection's gradient reaches the norm sharded over
+    # data as y is: torch 2.11 cannot add a partial sum to a shard there
+    out = data_partial_grad(y) @ params["out_proj"]
     # decode cache: the last (d_conv - 1) conv inputs, left-padded with
     # zeros for a shorter prompt, copied out of the projection's output
     k = scfg.d_conv

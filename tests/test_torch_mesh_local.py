@@ -127,6 +127,31 @@ def test_batchwise_replicates_rows_the_data_axes_do_not_divide():
     assert y.shape == (6, 5) and y.placements == (Replicate(), Replicate())
 
 
+def test_data_partial_grad_reduce_scatters_a_partial_sum_over_data():
+    """The identity forward; a gradient that is a partial sum over data,
+    where the tensor's rows are sharded, comes back reduce-scattered onto
+    those rows (one reduce-scatter over data), and a partial sum over
+    model, where the tensor is replicated, stays one: torch 2.11 cannot
+    add the first to a gradient sharded over data (ROADMAP P11)."""
+    with DR.fake_mesh(MESH) as dm:
+        x = shd.distribute(_meta(8, 4, 6), dm, shd.P("data", None, None)).requires_grad_()
+        counter = _counter(dm)
+        with dapi.use_mesh(dm), counter:
+            y = dapi.data_partial_grad(x)
+            grads = {}
+            for pl in ((Partial(), Shard(2)), (Shard(0), Partial()), (Replicate(), Replicate())):
+                g = DTensor.from_local(_meta(8, 4, 3) if pl[1] == Shard(2) else _meta(
+                    2 if pl[0] == Shard(0) else 8, 4, 6), dm, pl, run_check=False,
+                    shape=(8, 4, 6), stride=(24, 6, 1))
+                grads[pl] = torch.autograd.grad(y, x, g, retain_graph=True)[0]
+    assert y.placements == x.placements and counter.counts["all-gather"] == 0
+    assert grads[(Partial(), Shard(2))].placements == (Shard(0), Shard(2))
+    assert grads[(Shard(0), Partial())].placements == (Shard(0), Partial())
+    assert grads[(Replicate(), Replicate())].placements == (Replicate(), Replicate())
+    assert counter.counts["reduce-scatter"] == 1 and counter.by_axis["model"] == 0
+    assert dapi.data_partial_grad(torch.ones(2)).tolist() == [1.0, 1.0]
+
+
 # ---------------------------------------------------------------------------
 # what torch 2.11's DTensor refuses
 # ---------------------------------------------------------------------------
@@ -198,6 +223,10 @@ def test_the_guard_knows_the_refusals():
 
 STEPS = [(a, k) for a in configs.ARCH_IDS for k in ("decode", "prefill", "grad")
          if not (k == "prefill" and configs.get_config(a).family == "encdec")]
+# each step under the default layout and the sequence-parallel one (the
+# reference's REPRO_SEQ_PARALLEL), the default's ids as they were
+LAYOUT_STEPS = ([pytest.param(a, k, False, id=f"{a}-{k}") for a, k in STEPS]
+                + [pytest.param(a, k, True, id=f"{a}-{k}-seq_parallel") for a, k in STEPS])
 
 
 def _launcher_state(cfg, dm):
@@ -208,11 +237,12 @@ def _launcher_state(cfg, dm):
     return params, TD.to_device(stream.batch(0), "meta", dm)
 
 
-def _refused_in_step(arch, kind):
+def _refused_in_step(arch, kind, seq_parallel=False):
     """What torch 2.11 would refuse in one reduced step on a 4x2 mesh: the
     loss and gradients of the launcher's train step (``launch.train`` on a
     mesh: FSDP parameters, naive attention), or the dry run's prefill or
-    decode step."""
+    decode step, the residual stream in the sequence-parallel layout
+    between layers where ``seq_parallel``."""
     cfg = configs.get_config(arch, reduced=True)
     with DR.fake_mesh(MESH) as dm:
         if kind == "grad":
@@ -231,7 +261,7 @@ def _refused_in_step(arch, kind):
             def step():
                 case.fn(*args)
         guard = Refused211(tuple(MESH.axis_sizes))
-        with dapi.use_mesh(dm), guard:
+        with dapi.use_mesh(dm, seq_parallel=seq_parallel), guard:
             step()
     return guard.refused
 
@@ -250,11 +280,13 @@ def collected():
     gc.collect()
 
 
-@pytest.mark.parametrize("arch,kind", STEPS)
-def test_meshed_steps_ask_nothing_torch_2_11_refuses(arch, kind, warm, collected):
+@pytest.mark.parametrize("arch,kind,seq_parallel", LAYOUT_STEPS)
+def test_meshed_steps_ask_nothing_torch_2_11_refuses(arch, kind, seq_parallel, warm,
+                                                    collected):
     """Each reduced architecture's training gradients, prefill and decode
-    step on a 4x2 mesh ask DTensor for nothing torch 2.11 refuses."""
-    refused = _refused_in_step(arch, kind)
+    step on a 4x2 mesh ask DTensor for nothing torch 2.11 refuses, under
+    the default layout and the sequence-parallel one."""
+    refused = _refused_in_step(arch, kind, seq_parallel)
     assert not refused, refused[:5]
 
 
