@@ -101,21 +101,18 @@ Phases, each of which fails the script if it fails:
    phase 13's arguments, each step's loss and grad norm within 2e-2
    (relative) of phase 13's, its step time, tokens/s and peak memory beside
    phase 13's; a checkpoint saved from the mesh and loaded back onto it,
-   every leaf equal bit for bit; the launcher's mesh path again with
-   ``REPRO_SEQ_PARALLEL=1`` (the reference's sequence-parallel layout, the
-   identity on one rank), its losses and grad norms the default layout's
-   bit for bit; the group destroyed after;
+   every leaf equal bit for bit; the group destroyed after; then, on the
+   host's CPU, reduced jamba's train step on a 2x2 mesh of four gloo
+   processes against the unsharded step, within 2e-4
+   (``tests/test_torch_mesh_ranks.py``'s slow test): what the installed
+   torch refuses only on several ranks (ROADMAP P11), which one rank
+   cannot show;
 15. dryrun (last): the port's dry run (``repro_torch.launch.dryrun``'s
    ``main`` with ``--all``, on meta tensors, after the timed phases, its
    cases in a process a CPU) over every architecture x input shape
    pair on the 16x16 production mesh, all 35 ok, each record with its
    collective bytes and time (DTensor on a fake process group), yi-34b's
-   decode_32k and train_4k collectives printed by kind; the sweep again
-   with ``REPRO_SEQ_PARALLEL=1``, all 35 ok, every decode case's
-   collectives the default's, yi-34b's train_4k and prefill_32k,
-   qwen2-moe's and jamba's train_4k collectives by kind printed beside the
-   default layout's (counts on a fake process group, no time); yi-34b x
-   decode_32k's 1- and 2-block probes
+   decode_32k and train_4k collectives printed by kind; yi-34b x decode_32k's 1- and 2-block probes
    (B 128, a 32768-slot cache, full width) built for real on the card and
    run with K2 over every slot: the allocator's bytes for their arguments
    against the dry run's count, the step's peak over them, and the device
@@ -2112,30 +2109,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@contextlib.contextmanager
-def _env(name, value):
-    """``os.environ[name]`` set to ``value`` for the block, as it was after."""
-    prev = os.environ.get(name)
-    os.environ[name] = value
-    try:
-        yield
-    finally:
-        if prev is None:
-            del os.environ[name]
-        else:
-            os.environ[name] = prev
-
-
 def phase_mesh(train):
     """starcoder2-3b through the launcher's mesh path on the 1x1 mesh of an
     NCCL group of one rank, against phase train's plain path: the same
     arguments, each step's loss and grad norm within MESH_TOL relative; its
     step time (the same fixed batch as phase train's, placed on the mesh),
     tokens/s and peak memory beside phase train's; the launcher's checkpoint
-    loaded back onto the mesh, bit for bit; then the launcher's mesh path
-    once more with ``REPRO_SEQ_PARALLEL=1`` (the sequence-parallel layout,
-    the identity on one rank), each step's loss and grad norm the default
-    layout's bit for bit."""
+    loaded back onto the mesh, bit for bit."""
     t0 = time.perf_counter()
     shutil.rmtree(MESH_CKPT.parent, ignore_errors=True)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
@@ -2143,9 +2123,8 @@ def phase_mesh(train):
     try:
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        with _env("REPRO_SEQ_PARALLEL", "0"):
-            params, state, hist = LT.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
-                                           "--log-every", "1", "--save", str(MESH_CKPT)])
+        params, state, hist = LT.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                                       "--log-every", "1", "--save", str(MESH_CKPT)])
         wall = time.perf_counter() - t1
         peak = torch.cuda.max_memory_allocated() / 2**30
         leaf = OT.tree_leaves(params)[0]
@@ -2190,27 +2169,35 @@ def phase_mesh(train):
             f"{train['peak_gib']:.3f} GiB: DTensor's cost {step_s * 1e3 / train['step_ms']:.4f}x "
             f"the time, {peak / train['peak_gib']:.4f}x the peak")
         del params, state, batch
-        gc.collect()
-        torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        with _env("REPRO_SEQ_PARALLEL", "1"):
-            _, _, sp_hist = LT.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
-                                     "--log-every", "1"])
-        for h, d in zip(sp_hist, hist, strict=True):
-            log(f"  meshed step {h['step']} with REPRO_SEQ_PARALLEL=1: loss {h['loss']!r} "
-                f"(default layout {d['loss']!r}), grad norm {h['grad_norm']!r} "
-                f"({d['grad_norm']!r})")
-        same = all(h[k] == d[k] for h, d in zip(sp_hist, hist) for k in ("loss", "grad_norm"))
-        log(f"mesh: the sequence-parallel layout (REPRO_SEQ_PARALLEL=1) on the 1x1 mesh, "
-            f"{TRAIN_STEPS} steps in {time.perf_counter() - t1:.3f} s; losses and grad norms "
-            f"equal to the default layout's bit for bit: {same}")
-        assert same
     finally:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
     return dict(step_ms=step_s * 1e3, peak_gib=peak, worst_rel=worst)
+
+
+# the slow test that runs jamba's reduced step on a 2x2 gloo mesh of four
+# processes on the host's CPU against the unsharded step
+RANKS_TEST = "tests/test_torch_mesh_ranks.py::test_meshed_step_on_several_ranks[jamba-v0.1-52b]"
+
+
+def phase_ranks():
+    """RANKS_TEST under this host's torch: the Mamba2 gated norm's gradient
+    on a mesh whose data axis shards the rows (``api.data_partial_grad``)
+    and every other operation that the installed DTensor refuses only with
+    several ranks; loss, grad norm and parameters within 2e-4 of the
+    unsharded step."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-q", "-s",
+                          "-p", "no:cacheprovider", "-m", "slow", RANKS_TEST],
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=900)
+    rec = [line for line in out.stdout.splitlines() if line.startswith("jamba")]
+    log(f"ranks: {RANKS_TEST} on torch {torch.__version__} (gloo, CPU): exit "
+        f"{out.returncode} in {time.perf_counter() - t0:.1f} s; {rec}; "
+        f"{out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ''}")
+    assert out.returncode == 0, (out.stdout[-3000:], out.stderr[-3000:])
 
 
 # ---------------------------------------------------------------------------
@@ -2236,7 +2223,7 @@ def _dryrun_sweep():
     t0 = time.perf_counter()
     shutil.rmtree(SWEEP_DIR, ignore_errors=True)
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf), _env("REPRO_SEQ_PARALLEL", "0"):
+    with contextlib.redirect_stdout(buf):
         rc = DR.main(["--all", "--out", str(SWEEP_DIR)])
     out = buf.getvalue()
     pairs = configs.all_dryrun_pairs()
@@ -2266,49 +2253,6 @@ def _dryrun_sweep():
         f"in all (counts on meta tensors over NVIDIA's data-sheet peaks)")
     assert rc == 0 and n_ok == len(pairs) == 35, (rc, n_ok)
     return recs
-
-
-# the sequence-parallel layout's cases printed beside the default layout's
-SEQ_PARALLEL_CASES = (("yi-34b", "train_4k"), ("yi-34b", "prefill_32k"),
-                      ("qwen2-moe-a2.7b", "train_4k"), ("jamba-v0.1-52b", "train_4k"))
-
-
-def _dryrun_sweep_seq_parallel(default):
-    """The sweep again with ``REPRO_SEQ_PARALLEL=1`` (``dryrun --all``, the
-    residual stream sharded by sequence over model between layers outside
-    decode), into files of its own beside the default's: all 35 ok (an
-    operation DTensor refuses fails its case), each record saying it
-    counted the layout, every decode case's collectives the default's, and
-    SEQ_PARALLEL_CASES' collective bytes by kind printed beside the default
-    layout's."""
-    t0 = time.perf_counter()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf), _env("REPRO_SEQ_PARALLEL", "1"):
-        rc = DR.main(["--all", "--out", str(SWEEP_DIR)])
-    out = buf.getvalue()
-    pairs = configs.all_dryrun_pairs()
-    recs = [json.loads((SWEEP_DIR / f"{a}__{s.name}__singlepod__seqpar__einsum.json")
-                       .read_text()) for a, s in pairs]
-    base = {(r["arch"], r["shape"]): r for r in default}
-    for r in recs:
-        if not r["ok"]:
-            log(f"dryrun seq_parallel {r['arch']} x {r['shape']} FAILED: {r['error']}\n"
-                f"{r['traceback']}")
-    ok = [r for r in recs if r["ok"] and r["seq_parallel"] is True]
-    for arch, shape in SEQ_PARALLEL_CASES:
-        r, d = next(r for r in ok if (r["arch"], r["shape"]) == (arch, shape)), base[arch, shape]
-        log(f"  collectives of {arch} x {shape} by kind (B a device, rank 0 of a fake process "
-            f"group on meta tensors: counts, no time), REPRO_SEQ_PARALLEL=1: "
-            f"{ {k: r['collectives'][k] for k in DR.KINDS} }, counts "
-            f"{r['collectives']['_counts']}, by axis {r['collectives']['_by_axis']}; default "
-            f"layout: { {k: d['collectives'][k] for k in DR.KINDS} }, counts "
-            f"{d['collectives']['_counts']}, by axis {d['collectives']['_by_axis']}")
-    decode = [r for r in ok if configs.INPUT_SHAPES[r["shape"]].kind == "decode"]
-    same = all(r["collectives"] == base[r["arch"], r["shape"]]["collectives"] for r in decode)
-    log(f"dryrun sweep with REPRO_SEQ_PARALLEL=1: {out.strip().splitlines()[-1]}, exit {rc}; "
-        f"{len(ok)} records of the layout; {len(decode)} decode cases' collectives equal to "
-        f"the default layout's: {same}; {time.perf_counter() - t0:.1f} s in all")
-    assert rc == 0 and len(ok) == len(pairs) == 35 and decode and same, (rc, len(ok), same)
 
 
 def _probe_on_card(k, shape, mesh):
@@ -2393,8 +2337,7 @@ def _printed(main, argv):
 
 def phase_dryrun():
     """The dry run's sweep over every pair on the production mesh (all ok),
-    run here after the timed phases, and again with the sequence-parallel
-    layout (all ok, decode as the default), then the yi-34b decode_32k probes on a
+    run here after the timed phases, then the yi-34b decode_32k probes on a
     1x1 mesh built for real on the card with K2 on their path (B 128 over
     32768 of 32768 slots): the
     allocator's bytes for the arguments within ALLOC_SLACK a tensor of the
@@ -2403,7 +2346,7 @@ def phase_dryrun():
     ``adaptability`` on the card line for line as with ``--device cpu``, and
     ``quickstart``."""
     t0 = time.perf_counter()
-    _dryrun_sweep_seq_parallel(_dryrun_sweep())
+    _dryrun_sweep()
     shape = configs.INPUT_SHAPES[PROBE_SHAPE]
     mesh = MeshShape(("data", "model"), (1, 1))
     probes = {k: _probe_on_card(k, shape, mesh) for k in (1, 2)}
@@ -2478,6 +2421,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_mesh(train)
+    phase_ranks()
     d_launches = phase_dryrun()
     # each kernel's launches: the sum over the paths' runs, each read from
     # zero just before its run and just after

@@ -32,8 +32,6 @@ from repro_torch.distributed.sharding import PartitionSpec as P
 _ACTIVE_RULES: Optional[dict] = None
 # the DeviceMesh the models' activations live on, or None
 _ACTIVE_MESH = None
-# the reference's sequence-parallel layout between layers, on the active mesh
-_SEQ_PARALLEL = False
 
 
 def set_axis_rules(rules: Optional[dict]) -> None:
@@ -47,28 +45,18 @@ def get_axis_rules() -> Optional[dict]:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, seq_parallel: bool = False):
+def use_mesh(mesh):
     """``mesh`` active, with its axis rules, for the block; plain tensors
     that meet DTensors there (positions, masks, the step count) count as
-    replicated on it.  ``seq_parallel`` keeps the residual stream sharded
-    by sequence over ``model`` between layers outside decode (the
-    reference's ``REPRO_SEQ_PARALLEL``, which the launchers read).  The
-    previous mesh, rules and layout come back after."""
-    global _ACTIVE_MESH, _ACTIVE_RULES, _SEQ_PARALLEL
-    prev = _ACTIVE_MESH, _ACTIVE_RULES, _SEQ_PARALLEL
+    replicated on it.  The previous mesh and rules come back after."""
+    global _ACTIVE_MESH, _ACTIVE_RULES
+    prev = _ACTIVE_MESH, _ACTIVE_RULES
     _ACTIVE_MESH, _ACTIVE_RULES = mesh, shd.axis_rules(mesh)
-    _SEQ_PARALLEL = bool(seq_parallel)
     try:
         with implicit_replication():
             yield mesh
     finally:
-        _ACTIVE_MESH, _ACTIVE_RULES, _SEQ_PARALLEL = prev
-
-
-def seq_parallel() -> bool:
-    """Whether the active mesh keeps the sequence-parallel layout; False
-    where no mesh is active."""
-    return _ACTIVE_MESH is not None and _SEQ_PARALLEL
+        _ACTIVE_MESH, _ACTIVE_RULES = prev
 
 
 def resolve(spec_names: Tuple[Optional[str], ...]) -> P:
@@ -232,28 +220,6 @@ def data_partial_grad(x):
     if not isinstance(x, DTensor):
         return x
     return _DataPartialGrad.apply(x)
-
-
-def seq_gather(x):
-    """``x`` (B, S, ...) with each rank's rows whole along the sequence
-    where the sequence-parallel layout is on (an all-gather over
-    ``model``), else ``x``: the entry of a region that reads whole
-    sequences, a sublayer's projections or the loss.  torch 2.11 cannot
-    flatten (B, S) into a product's rows with S sharded."""
-    if not seq_parallel():
-        return x
-    return constrain(x, "data", *([None] * (x.dim() - 1)))
-
-
-def seq_scatter(x):
-    """A sublayer's output ``x`` (B, S, d) on the residual stream's
-    sequence-parallel layout where it is on (a partial sum over ``model``
-    reduce-scattered along S, a replica sliced), else ``x``.  Left to
-    itself, DTensor would all-reduce the partial sum at the residual add
-    and slice it after."""
-    if not seq_parallel():
-        return x
-    return constrain(x, "data", "model", *([None] * (x.dim() - 2)))
 
 
 class _ToLocal(torch.autograd.Function):

@@ -28,11 +28,7 @@ extrapolate as the flops do: ``collective_bytes_per_dev`` and
 ``collectives``.  ``collective_s`` divides each collective's bytes by the
 link its mesh axis runs over (``LINKS``).  DTensor propagates shardings op
 by op, which is not GSPMD's partitioner: the bytes are the port's, not
-XLA's (``collective_note``).  ``REPRO_SEQ_PARALLEL=1``, the reference's
-switch, counts them with the residual stream sharded by sequence over
-``model`` between layers outside decode (``use_mesh(..., seq_parallel=True)``);
-each record says which layout it counted (``seq_parallel``), and such a
-sweep's files carry ``__seqpar`` in their names.
+XLA's (``collective_note``).
 
 Memory: ``mem.argument_gb`` and ``mem.output_gb`` are the per-device bytes
 of the step's arguments and outputs under the sharding specs of
@@ -50,7 +46,6 @@ two terms ``counted_bottleneck``, not the reference's ``memory_s`` and
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--out DIR]
-  REPRO_SEQ_PARALLEL=1 PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 """
 from __future__ import annotations
 
@@ -396,16 +391,15 @@ def link_bw(dmesh) -> Dict[str, float]:
     return out
 
 
-def collectives(case: Case, dmesh, *, seq_parallel: bool = False) -> Dict:
+def collectives(case: Case, dmesh) -> Dict:
     """The collectives of one run of ``case.fn`` with its arguments as
-    DTensors on ``dmesh`` under ``case.specs``, the residual stream in the
-    sequence-parallel layout between layers where ``seq_parallel``: bytes
-    and counts by kind, bytes by mesh axis."""
+    DTensors on ``dmesh`` under ``case.specs``: bytes and counts by kind,
+    bytes by mesh axis."""
     groups = {dmesh.get_group(i).group_name: name
               for i, name in enumerate(dmesh.mesh_dim_names)}
     args = shd.distribute(case.args, dmesh, case.specs)
     counter = CollectiveCounter(groups)
-    with dapi.use_mesh(dmesh, seq_parallel=seq_parallel), counter:
+    with dapi.use_mesh(dmesh), counter:
         case.fn(*args)
     return {"bytes": counter.bytes, "counts": counter.counts, "by_axis": counter.by_axis}
 
@@ -460,7 +454,7 @@ def probe_costs(cfg: ModelConfig, shape: InputShape, mesh, *,
 
 def probe_collectives(cfg: ModelConfig, shape: InputShape, mesh: MeshShape, *,
                       moe_impl: str = "einsum", weights_mode: str = "auto",
-                      microbatch: int = 1, seq_parallel: bool = False):
+                      microbatch: int = 1):
     """Per-device collective bytes from the same two probes on a fake
     ``DeviceMesh`` of ``mesh``'s shape, extrapolated as ``probe_costs``
     extrapolates, by kind and by mesh axis, with counts and the collective
@@ -472,7 +466,7 @@ def probe_collectives(cfg: ModelConfig, shape: InputShape, mesh: MeshShape, *,
         for k in (1, 2):
             case = build_case(_probe_cfg(cfg, k), shape, mesh, moe_impl=moe_impl,
                               weights_mode=weights_mode, microbatch=microbatch)
-            res[k] = collectives(case, dmesh, seq_parallel=seq_parallel)
+            res[k] = collectives(case, dmesh)
 
     def extrap(part):
         return {key: max(res[1][part][key] + (n_rep - 1)
@@ -494,13 +488,10 @@ def make_custom_mesh(spec: str) -> MeshShape:
 def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
              moe_impl: str = "einsum", verbose: bool = True,
              mesh_shape: Optional[str] = None, weights_mode: str = "auto",
-             microbatch: int = 1, cfg: Optional[ModelConfig] = None,
-             seq_parallel: bool = False) -> Dict:
+             microbatch: int = 1, cfg: Optional[ModelConfig] = None) -> Dict:
     """One case's record; ``cfg`` replaces ``arch``'s published config (a
-    reduced one, say); ``seq_parallel`` counts the collectives under the
-    sequence-parallel layout, and the record says which it counted.  A
-    failure is caught and recorded (``ok`` false, ``error``,
-    ``traceback``), as in the reference's sweep."""
+    reduced one, say).  A failure is caught and recorded (``ok`` false,
+    ``error``, ``traceback``), as in the reference's sweep."""
     cfg = cfg or configs.get_config(arch)
     shape = configs.INPUT_SHAPES[shape_name]
     mesh = (make_custom_mesh(mesh_shape) if mesh_shape
@@ -508,8 +499,7 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
     n_dev = mesh.size
     rec = {"arch": arch, "shape": shape.name, "mesh": "x".join(
         f"{k}={v}" for k, v in mesh.shape.items()), "devices": n_dev,
-        "moe_impl": moe_impl, "weights_mode": weights_mode, "seq_parallel": seq_parallel,
-        "ok": False}
+        "moe_impl": moe_impl, "weights_mode": weights_mode, "ok": False}
     t0 = time.time()
     try:
         case = build_case(cfg, shape, mesh, moe_impl=moe_impl, weights_mode=weights_mode,
@@ -518,8 +508,7 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
                             weights_mode=weights_mode, microbatch=microbatch)
         flops, bytes_acc = probe["flops"], probe["bytes"]
         coll = probe_collectives(cfg, shape, mesh, moe_impl=moe_impl,
-                                 weights_mode=weights_mode, microbatch=microbatch,
-                                 seq_parallel=seq_parallel)
+                                 weights_mode=weights_mode, microbatch=microbatch)
         mflops = model_flops_per_device(cfg, shape, n_dev)
         rec.update({
             "ok": True,
@@ -592,9 +581,6 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--skip-existing", action="store_true")
     args = ap.parse_args(argv)
-    # the reference's switch of the layout between layers ("1": the
-    # residual stream sharded by sequence over model outside decode)
-    seq_par = os.environ.get("REPRO_SEQ_PARALLEL", "0") == "1"
 
     os.makedirs(args.out, exist_ok=True)
     pairs = (configs.all_dryrun_pairs() if args.all
@@ -606,8 +592,6 @@ def main(argv=None) -> int:
         tag += f"__{args.weights_mode}"
     if args.microbatch > 1:
         tag += f"__mb{args.microbatch}"
-    if seq_par:
-        tag += "__seqpar"
     n_ok = 0
     todo = []
     for arch, shape in pairs:
@@ -620,8 +604,7 @@ def main(argv=None) -> int:
             continue
         todo.append((_KIND_ORDER[shape.kind], arch, sname, path))
     kw = dict(multi_pod=args.multi_pod, moe_impl=args.moe_impl, mesh_shape=args.mesh_shape,
-              weights_mode=args.weights_mode, microbatch=args.microbatch,
-              seq_parallel=seq_par)
+              weights_mode=args.weights_mode, microbatch=args.microbatch)
     items = [(arch, sname, path, kw) for _, arch, sname, path in sorted(todo)]
     # a process a CPU this process may run on, no more than there are cases
     jobs = min(len(os.sched_getaffinity(0)), len(items))

@@ -13,8 +13,6 @@ already, it trains on a ``(data, model)`` mesh of ``--data-par`` x
 ``--device cpu``): every rank draws the same seeded parameters, keeps its
 shards of them under the reference's FSDP specs, the AdamW moments beside
 them, and its rows of each batch; rank 0 logs and writes ``--save``.
-``REPRO_SEQ_PARALLEL=1`` keeps the residual stream sharded by sequence over
-``model`` between layers there, as the reference's switch does.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
       --reduced --steps 100 --batch 8 --seq 128
@@ -22,9 +20,6 @@ them, and its rows of each batch; rank 0 logs and writes ``--save``.
       --reduced --steps 10 --device cpu
   PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
       --arch qwen2-moe-a2.7b --reduced --data-par 4 --model-par 2
-  REPRO_SEQ_PARALLEL=1 PYTHONPATH=src torchrun --nproc-per-node 4 \
-      -m repro_torch.launch.train --arch starcoder2-3b --reduced \
-      --data-par 2 --model-par 2 --device cpu
 """
 from __future__ import annotations
 
@@ -111,9 +106,6 @@ def main(argv=None):
                            f"rank: run under torchrun --nproc-per-node "
                            f"{args.data_par * args.model_par}")
     rank0 = mesh is None or dist.get_rank() == 0
-    # the reference's switch of the layout between layers on a mesh ("1":
-    # the residual stream sharded by sequence over model)
-    seq_par = os.environ.get("REPRO_SEQ_PARALLEL", "0") == "1"
     cfg = configs.get_config(args.arch, reduced=args.reduced)
     ocfg = optim.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                              total_steps=args.steps)
@@ -129,8 +121,7 @@ def main(argv=None):
     it = iter(stream)
     history = []
     try:
-        with (dapi.use_mesh(mesh, seq_parallel=seq_par) if mesh is not None
-              else contextlib.nullcontext()):
+        with dapi.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
             t0 = time.time()
             for i in range(args.steps):
                 batch = data.to_device(next(it), dev, mesh)

@@ -34,7 +34,7 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.api import batchwise, constrain, seq_gather
+from repro_torch.distributed.api import batchwise, constrain
 from repro_torch.models import layers as L
 from repro_torch.models import stack as ST
 
@@ -126,7 +126,7 @@ def forward(params, cfg: ModelConfig, batch, *, impl="kernel", moe_impl="einsum"
     x, _, aux = ST.apply_stack(params["stack"], cfg, x, _positions(b, s, x.device),
                                impl=impl, moe_impl=moe_impl, enc_out=enc_out,
                                mode="train", remat=remat)
-    x = seq_gather(L.rms_norm(x, params["final_norm"], cfg.norm_eps))
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x[:, n_prefix:], aux
 
 
@@ -143,7 +143,7 @@ def prefill(params, cfg: ModelConfig, batch, *, impl="kernel", moe_impl="einsum"
     x, caches, _ = ST.apply_stack(params["stack"], cfg, x, _positions(b, s, x.device),
                                   impl=impl, moe_impl=moe_impl, enc_out=enc_out,
                                   mode="prefill", capacity=capacity if capacity else s)
-    x = seq_gather(L.rms_norm(x, params["final_norm"], cfg.norm_eps))
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x[:, -1], caches, s
 
 

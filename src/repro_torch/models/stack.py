@@ -24,8 +24,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.api import (batchwise, constrain, mesh_axis_size, seq_gather,
-                                         seq_parallel, seq_scatter)
+from repro_torch.distributed.api import batchwise, constrain, mesh_axis_size
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MO
@@ -169,12 +168,7 @@ def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
     left out to spare a launch)."""
     aux = None
     new_cache = {}
-    # the sequence-parallel layout outside decode: each sublayer reads its
-    # normed input gathered along the sequence and its output goes onto the
-    # residual's sequence shards, the all-gather and reduce-scatter XLA
-    # makes of the reference's layout
-    enter, leave = (seq_gather, seq_scatter) if mode != "decode" else (_same, _same)
-    h = enter(L.rms_norm(x, params["ln1"], cfg.norm_eps))
+    h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
     if not spec.is_attn:
         if mode == "decode":
             a, new_cache = S.mamba_decode(params["ssm"], h, cache, cfg.d_model, cfg.ssm)
@@ -190,34 +184,27 @@ def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
                                  window=window, causal=True, impl=impl)
         if mode == "prefill":
             new_cache = _build_kv_cache(k, v, window, capacity)
-    x = x + leave(a)
+    x = x + a
     if spec.has_cross:
-        h = enter(L.rms_norm(x, params["ln_x"], cfg.norm_eps))
+        h = L.rms_norm(x, params["ln_x"], cfg.norm_eps)
         if mode == "decode":
             a = _cross_decode(params["cross"], h, cache, impl)
         else:
             a, (xk, xv) = L.cross_attn_block(params["cross"], h, enc_out, impl=impl)
             if mode == "prefill":
                 new_cache["xk"], new_cache["xv"] = xk, xv
-        x = x + leave(a)
+        x = x + a
     if "moe" in params:
-        h = enter(L.rms_norm(x, params["ln2"], cfg.norm_eps))
+        h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
         mo, aux = MO.moe_apply(params["moe"], h, cfg.moe, impl=moe_impl)
-        x = x + leave(mo)
+        x = x + mo
     elif "mlp" in params:
-        h = enter(L.rms_norm(x, params["ln2"], cfg.norm_eps))
-        x = x + leave(L.mlp(params["mlp"], h))
-    if seq_parallel() and mode != "decode":
-        # the reference's REPRO_SEQ_PARALLEL layout: the residual stream
-        # sharded by sequence over model between layers
-        x = constrain(x, "data", "model", None)
-    else:
-        x = constrain(x, "data", None, None)
+        h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
+        x = x + L.mlp(params["mlp"], h)
+    # the reference's default layout between layers (its REPRO_SEQ_PARALLEL
+    # switch, off by default, is not ported)
+    x = constrain(x, "data", None, None)
     return x, new_cache, aux
-
-
-def _same(x):
-    return x
 
 
 def _build_kv_cache(k, v, window, capacity):

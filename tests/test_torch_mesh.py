@@ -447,66 +447,6 @@ def test_collectives_of_one_dense_layer_by_hand():
     assert counter.by_axis == {"data": 0, "model": (b // 4) * s * d * 4}
 
 
-def test_collectives_of_one_dense_layer_by_hand_seq_parallel():
-    """The same layer in the sequence-parallel layout (the reference's
-    REPRO_SEQ_PARALLEL): x's rows over data and its sequence over model.
-    The layer gathers its input along the sequence (``api.seq_gather``: one
-    all-gather over model, (B / 4) x S x d f32), the products stay local,
-    and w_out's partial sum goes onto the residual's sequence shards
-    (``api.seq_scatter``: one reduce-scatter, (B / 4) x (S / 2) x d f32);
-    the residual add and the layer's ``constrain(x, "data", "model", None)``
-    move nothing, and nothing is all-reduced."""
-    b, s, d, ff = 8, 16, 64, 256
-    ms = MESHES["4x2"]
-    meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
-    params = {"w_in": meta(d, ff), "w_gate": meta(d, ff), "w_out": meta(ff, d)}
-    specs = {k: shd.param_specs({"stack": {"0": {"mlp": {k: v}}}}, ms)["stack"]["0"]["mlp"][k]
-             for k, v in params.items()}
-    with DR.fake_mesh(ms) as dm:
-        groups = {dm.get_group(i).group_name: n for i, n in enumerate(dm.mesh_dim_names)}
-        p = shd.distribute(params, dm, specs)
-        x = shd.distribute(meta(b, s, d), dm, shd.P("data", "model", None))
-        counter = DR.CollectiveCounter(groups)
-        with dapi.use_mesh(dm, seq_parallel=True), counter:
-            a = dapi.seq_scatter(TL.mlp(p, dapi.seq_gather(x)))
-            y = dapi.constrain(x + a, "data", "model", None)
-    assert a.placements == y.placements == (Shard(0), Shard(1))
-    assert counter.bytes == {"all-reduce": 0, "all-gather": (b // 4) * s * d * 4,
-                             "reduce-scatter": (b // 4) * (s // 2) * d * 4, "all-to-all": 0,
-                             "collective-permute": 0}
-    assert counter.counts == {"all-reduce": 0, "all-gather": 1, "reduce-scatter": 1,
-                              "all-to-all": 0, "collective-permute": 0}
-    assert counter.by_axis == {"data": 0, "model": (b // 4) * d * 4 * (s + s // 2)}
-
-
-def test_collectives_of_a_decoder_layer_by_hand_seq_parallel():
-    """A whole reduced yi-34b layer through ``stack.layer_apply`` in the
-    sequence-parallel layout (f32, serving specs: heads and MLP columns
-    over model): each of its two sublayers is one all-gather of its normed
-    input and one reduce-scatter of its output over model, no all-reduce,
-    and the layer leaves the residual stream sharded by sequence."""
-    import dataclasses
-    cfg = dataclasses.replace(TC.get_config("yi-34b", reduced=True), dtype=torch.float32)
-    spec = ST.layer_specs(cfg)[0]
-    layer = ST.init_layer(TM._MetaGenerator().manual_seed(0), cfg, spec)
-    ms = MESHES["4x2"]
-    b, s, d = 8, 16, cfg.d_model
-    with DR.fake_mesh(ms) as dm:
-        groups = {dm.get_group(i).group_name: n for i, n in enumerate(dm.mesh_dim_names)}
-        p = shd.distribute(layer, dm, shd.param_specs({"stack": {"0": layer}}, ms)["stack"]["0"])
-        x = shd.distribute(torch.empty(b, s, d, device="meta"), dm, shd.P("data", "model", None))
-        pos = torch.arange(s, device="meta")[None].expand(b, s)
-        counter = DR.CollectiveCounter(groups)
-        with dapi.use_mesh(dm, seq_parallel=True), counter:
-            y, _, _ = ST.layer_apply(p, cfg, spec, x, pos, impl="naive", mode="train")
-    assert y.placements == (Shard(0), Shard(1))
-    assert counter.bytes == {"all-reduce": 0, "all-gather": 2 * (b // 4) * s * d * 4,
-                             "reduce-scatter": 2 * (b // 4) * (s // 2) * d * 4,
-                             "all-to-all": 0, "collective-permute": 0}
-    assert counter.counts["all-gather"] == counter.counts["reduce-scatter"] == 2
-    assert counter.by_axis["data"] == 0
-
-
 @torch.library.custom_op("repro_torch_mesh_test::twice", mutates_args=())
 def _twice(x: torch.Tensor) -> torch.Tensor:
     """An operation DTensor has no sharding rule for."""

@@ -223,10 +223,6 @@ def test_the_guard_knows_the_refusals():
 
 STEPS = [(a, k) for a in configs.ARCH_IDS for k in ("decode", "prefill", "grad")
          if not (k == "prefill" and configs.get_config(a).family == "encdec")]
-# each step under the default layout and the sequence-parallel one (the
-# reference's REPRO_SEQ_PARALLEL), the default's ids as they were
-LAYOUT_STEPS = ([pytest.param(a, k, False, id=f"{a}-{k}") for a, k in STEPS]
-                + [pytest.param(a, k, True, id=f"{a}-{k}-seq_parallel") for a, k in STEPS])
 
 
 def _launcher_state(cfg, dm):
@@ -237,12 +233,11 @@ def _launcher_state(cfg, dm):
     return params, TD.to_device(stream.batch(0), "meta", dm)
 
 
-def _refused_in_step(arch, kind, seq_parallel=False):
+def _refused_in_step(arch, kind):
     """What torch 2.11 would refuse in one reduced step on a 4x2 mesh: the
     loss and gradients of the launcher's train step (``launch.train`` on a
     mesh: FSDP parameters, naive attention), or the dry run's prefill or
-    decode step, the residual stream in the sequence-parallel layout
-    between layers where ``seq_parallel``."""
+    decode step."""
     cfg = configs.get_config(arch, reduced=True)
     with DR.fake_mesh(MESH) as dm:
         if kind == "grad":
@@ -261,7 +256,7 @@ def _refused_in_step(arch, kind, seq_parallel=False):
             def step():
                 case.fn(*args)
         guard = Refused211(tuple(MESH.axis_sizes))
-        with dapi.use_mesh(dm, seq_parallel=seq_parallel), guard:
+        with dapi.use_mesh(dm), guard:
             step()
     return guard.refused
 
@@ -280,13 +275,11 @@ def collected():
     gc.collect()
 
 
-@pytest.mark.parametrize("arch,kind,seq_parallel", LAYOUT_STEPS)
-def test_meshed_steps_ask_nothing_torch_2_11_refuses(arch, kind, seq_parallel, warm,
-                                                    collected):
+@pytest.mark.parametrize("arch,kind", STEPS)
+def test_meshed_steps_ask_nothing_torch_2_11_refuses(arch, kind, warm, collected):
     """Each reduced architecture's training gradients, prefill and decode
-    step on a 4x2 mesh ask DTensor for nothing torch 2.11 refuses, under
-    the default layout and the sequence-parallel one."""
-    refused = _refused_in_step(arch, kind, seq_parallel)
+    step on a 4x2 mesh ask DTensor for nothing torch 2.11 refuses."""
+    refused = _refused_in_step(arch, kind)
     assert not refused, refused[:5]
 
 

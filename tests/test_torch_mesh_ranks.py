@@ -26,7 +26,7 @@ from repro_torch.training import optim as TO
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 RANK_CODE = r"""
-import json, os, sys
+import json, sys
 import torch, torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate
 from repro_torch import configs
@@ -60,8 +60,7 @@ p1, _, m1 = step(plain, optim.init_state(plain), data.to_device(batch, "cpu"))
 MO._top_k = replay
 meshed = M.init(cfg, seed=0, device="cpu")
 meshed = shd.distribute(meshed, mesh, LT.param_specs(meshed, cfg, mesh))
-# the layout between layers as the launcher reads it
-with dapi.use_mesh(mesh, seq_parallel=os.environ.get("REPRO_SEQ_PARALLEL", "0") == "1"):
+with dapi.use_mesh(mesh):
     p2, s2, m2 = step(meshed, optim.init_state(meshed), data.to_device(batch, "cpu", mesh))
 MO._top_k = top_k
 full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
@@ -86,13 +85,11 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _run_ranks(n, argv, timeout=600, seq_parallel=False):
+def _run_ranks(n, argv, timeout=600):
     """``argv`` in ``n`` processes of one gloo group (rank, world size and
-    rendezvous in the environment, as torchrun sets them), with
-    ``REPRO_SEQ_PARALLEL`` set to the layout."""
+    rendezvous in the environment, as torchrun sets them)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), WORLD_SIZE=str(n),
-               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), OMP_NUM_THREADS="1",
-               REPRO_SEQ_PARALLEL="1" if seq_parallel else "0")
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(argv, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=REPO,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for r in range(n)]
@@ -107,26 +104,21 @@ def _run_ranks(n, argv, timeout=600, seq_parallel=False):
 
 
 MESHES = {"qwen2-moe-a2.7b": (4, 2), "starcoder2-3b": (2, 2), "jamba-v0.1-52b": (2, 2)}
-# the sequence-parallel layout (REPRO_SEQ_PARALLEL=1): a dense model, a MoE
-# model and the hybrid, each with the sequence over a model axis of two
-SEQ_MESHES = {"starcoder2-3b": (2, 2), "qwen2-moe-a2.7b": (4, 2), "jamba-v0.1-52b": (2, 2)}
 
 
 @pytest.fixture(scope="module")
 def rank_runs(tmp_path_factory):
-    """Each architecture's step on its mesh, run once for the tests below
-    under the layout asked for: rank 0's record, and the checkpoints of the
-    meshed and the plain step."""
+    """Each architecture's step on its mesh, run once for the tests below:
+    rank 0's record, and the checkpoints of the meshed and the plain step."""
     runs = {}
 
-    def run(arch, seq_parallel=False):
-        if (arch, seq_parallel) not in runs:
-            dp, mp = (SEQ_MESHES if seq_parallel else MESHES)[arch]
+    def run(arch):
+        if arch not in runs:
+            dp, mp = MESHES[arch]
             out = str(tmp_path_factory.mktemp(arch) / "rank0.json")
-            _run_ranks(dp * mp, [sys.executable, "-c", RANK_CODE, arch, str(dp), str(mp), out],
-                       seq_parallel=seq_parallel)
-            runs[arch, seq_parallel] = out, json.load(open(out))
-        return runs[arch, seq_parallel]
+            _run_ranks(dp * mp, [sys.executable, "-c", RANK_CODE, arch, str(dp), str(mp), out])
+            runs[arch] = out, json.load(open(out))
+        return runs[arch]
     return run
 
 
@@ -141,26 +133,6 @@ def test_meshed_step_on_several_ranks(arch, rank_runs):
     parameters."""
     out, rec = rank_runs(arch)
     print(arch, "x".join(map(str, MESHES[arch])), rec)
-    assert rec["loss"][1] == pytest.approx(rec["loss"][0], abs=2e-4)
-    assert rec["grad_norm"][1] == pytest.approx(rec["grad_norm"][0], rel=2e-4)
-    assert rec["param_diff"] <= 2e-4 and rec["unrouted"] == 0 and rec["sharded"] > 0
-    cfg = TC.get_config(arch, reduced=True)
-    mesh = TCK.load(out + ".mesh.npz", cfg, device="cpu")
-    plain = TCK.load(out + ".plain.npz", cfg, device="cpu")
-    for a, b in zip(TO.tree_leaves(mesh), TO.tree_leaves(plain)):
-        torch.testing.assert_close(a, b, atol=2e-4, rtol=0)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("arch", list(SEQ_MESHES))
-def test_meshed_step_on_several_ranks_seq_parallel(arch, rank_runs):
-    """The same step with ``REPRO_SEQ_PARALLEL=1``: the residual stream
-    sharded by sequence over model between layers, each sublayer's input
-    gathered and its output reduce-scattered; loss, grad norm and every
-    updated parameter within 2e-4 of the unsharded step, qwen2-moe and
-    jamba under one routing."""
-    out, rec = rank_runs(arch, seq_parallel=True)
-    print(arch, "x".join(map(str, SEQ_MESHES[arch])), "seq_parallel", rec)
     assert rec["loss"][1] == pytest.approx(rec["loss"][0], abs=2e-4)
     assert rec["grad_norm"][1] == pytest.approx(rec["grad_norm"][0], rel=2e-4)
     assert rec["param_diff"] <= 2e-4 and rec["unrouted"] == 0 and rec["sharded"] > 0
@@ -211,31 +183,3 @@ def test_torchrun_runs_the_launcher_on_a_2x2_mesh(tmp_path):
     assert "saved" in out.stdout and os.path.exists(path)
     back = TCK.load(path, TC.get_config("starcoder2-3b", reduced=True), device="cpu")
     assert all(bool(torch.isfinite(t).all()) for t in TO.tree_leaves(back))
-
-
-@pytest.mark.slow
-def test_torchrun_runs_the_launcher_on_a_2x2_mesh_seq_parallel():
-    """``REPRO_SEQ_PARALLEL=1 torchrun --nproc-per-node 4 -m
-    repro_torch.launch.train --arch starcoder2-3b --reduced --data-par 2
-    --model-par 2 --steps 3 --device cpu``: every step's loss within 2e-4
-    and grad norm within 2e-4 (relative) of the launcher's unsharded run in
-    this process."""
-    from repro_torch.launch import train as LT
-    common = ["--arch", "starcoder2-3b", "--reduced", "--steps", "3", "--device", "cpu",
-              "--log-every", "1"]
-    argv = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "4",
-            "--master-port", str(_free_port()), "-m", "repro_torch.launch.train",
-            *common, "--data-par", "2", "--model-par", "2"]
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1",
-               REPRO_SEQ_PARALLEL="1")
-    out = subprocess.run(argv, env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
-    assert out.returncode == 0, out.stderr[-3000:]
-    print(out.stdout)
-    meshed = [line.split() for line in out.stdout.splitlines() if line.startswith("step")]
-    plain = LT.main(common)[2]
-    assert [int(m[1]) for m in meshed] == [h["step"] for h in plain] == [0, 1, 2]
-    for m, h in zip(meshed, plain):
-        loss, gnorm = float(m[2].split("=")[1]), float(m[3].split("=")[1])
-        print("meshed", loss, gnorm, "plain", h["loss"], h["grad_norm"])
-        assert loss == pytest.approx(h["loss"], abs=2e-4)
-        assert gnorm == pytest.approx(h["grad_norm"], rel=2e-4)
