@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch import device as D
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.api import batchwise, constrain
 from repro_torch.models import layers as L
@@ -158,8 +159,10 @@ def decode_step(params, cfg: ModelConfig, caches, cache_len: int, tokens, *,
     x, caches, _ = ST.apply_stack(params["stack"], cfg, x, None, impl=impl,
                                   moe_impl=moe_impl, caches=caches,
                                   cache_len=cache_len, mode="decode")
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return constrain((x @ params["embed"].T)[:, 0], "data", "model"), caches
+    with tracing.span("final"):
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        lg = constrain((x @ params["embed"].T)[:, 0], "data", "model")
+    return lg, caches
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,

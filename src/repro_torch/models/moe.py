@@ -17,12 +17,15 @@ f32 (the router parameter is f32 even in a bf16 model), the one-hots, the
 combine and gather weights in the activation dtype, ties in top-k broken
 towards the lower expert index as ``jax.lax.top_k`` does.  No kernel: the
 expert products are plain batched matmuls, as XLA's are in the reference.
+While ``tracing.recording()`` is open, routing, dispatch, the experts and
+the combine are spans, and the pairs routed and dropped are counted.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed.api import constrain, einsum
 from repro_torch.models import layers as L
@@ -113,39 +116,60 @@ def moe_apply(params, x, mcfg: MoEConfig, impl: str = "einsum",
     xg = constrain(xf.reshape(g, tg, d), "data", None, None)
 
     if impl == "einsum":
-        top_w, top_i, aux = _route(params, xg, mcfg)
-        aux = aux.mean()
-        pos = _positions_in_expert_grouped(top_i, mcfg, cap)        # (G, Tg, k)
-        e_oh = _one_hot(top_i, mcfg.n_experts, x.dtype)
-        c_oh = _one_hot(pos, cap, x.dtype)
-        combine = einsum("gtke,gtkc,gtk->gtec", e_oh, c_oh, top_w.to(x.dtype))
-        dispatch = einsum("gtke,gtkc->gtec", e_oh, c_oh)
-        # on a mesh, the one-hots and the experts' outputs in the reference's
-        # expert-parallel layout (groups over data, experts over model):
-        # DTensor, left to itself, shards the capacity dim of the combine
-        # einsum's operands, which its flattening cannot do unevenly
-        combine = constrain(combine, "data", None, "model", None)
-        dispatch = constrain(dispatch, "data", None, "model", None)
-        xd = constrain(einsum("gtec,gtd->gecd", dispatch, xg), "data", "model", None, None)
-        ye = constrain(_expert_ffn(params, xd), "data", "model", None, None)
-        y = constrain(einsum("gecd,gtec->gtd", ye, combine), "data", None, None).reshape(t, d)
+        with tracing.span("moe.route"):
+            top_w, top_i, aux = _route(params, xg, mcfg)
+            aux = aux.mean()
+        with tracing.span("moe.dispatch"):
+            pos = _positions_in_expert_grouped(top_i, mcfg, cap)    # (G, Tg, k)
+            _count_routing(pos, cap)
+            e_oh = _one_hot(top_i, mcfg.n_experts, x.dtype)
+            c_oh = _one_hot(pos, cap, x.dtype)
+            combine = einsum("gtke,gtkc,gtk->gtec", e_oh, c_oh, top_w.to(x.dtype))
+            dispatch = einsum("gtke,gtkc->gtec", e_oh, c_oh)
+            # on a mesh, the one-hots and the experts' outputs in the reference's
+            # expert-parallel layout (groups over data, experts over model):
+            # DTensor, left to itself, shards the capacity dim of the combine
+            # einsum's operands, which its flattening cannot do unevenly
+            combine = constrain(combine, "data", None, "model", None)
+            dispatch = constrain(dispatch, "data", None, "model", None)
+            xd = constrain(einsum("gtec,gtd->gecd", dispatch, xg), "data", "model", None, None)
+        with tracing.span("moe.experts"):
+            ye = constrain(_expert_ffn(params, xd), "data", "model", None, None)
+        with tracing.span("moe.combine"):
+            y = constrain(einsum("gecd,gtec->gtd", ye, combine), "data", None, None).reshape(t, d)
+            y = _add_shared(params, y, xf)
     elif impl == "gather":
         ys, auxs = [], []
         for xr in xg:
-            top_w, top_i, aux_g = _route(params, xr, mcfg)
+            with tracing.span("moe.route"):
+                top_w, top_i, aux_g = _route(params, xr, mcfg)
             ys.append(_dispatch_gather(params, xr, top_w, top_i, mcfg, cap))
             auxs.append(aux_g)
         y = torch.cat(ys)
         aux = torch.stack(auxs).mean()
+        if "shared" in params:
+            with tracing.span("moe.combine"):
+                y = _add_shared(params, y, xf)
     else:
         raise ValueError(f"unknown moe impl {impl!r}")
-
-    if "shared" in params:
-        # on a mesh, the shared experts' partial sums reduced onto y's layout
-        # (tokens over data): DTensor would otherwise scatter the tokens over
-        # the model axis too, which the reshape back to (B, S, d) cannot split
-        y = y + constrain(L.mlp(params["shared"], xf), "data", None)
     return y.reshape(b, s, d), aux
+
+
+def _add_shared(params, y, xf):
+    """y plus the shared experts' output, where the layer has them."""
+    if "shared" not in params:
+        return y
+    # on a mesh, the shared experts' partial sums reduced onto y's layout
+    # (tokens over data): DTensor would otherwise scatter the tokens over
+    # the model axis too, which the reshape back to (B, S, d) cannot split
+    return y + constrain(L.mlp(params["shared"], xf), "data", None)
+
+
+def _count_routing(pos, cap: int):
+    """The (token, expert) pairs routed (a host count) and those past their
+    expert's capacity, which are dropped (R5; on the device)."""
+    tracing.count("moe.pairs", pos.numel())
+    tracing.count_device("moe.dropped", pos, at_least=cap)
 
 
 def _positions_in_expert_grouped(top_i, mcfg: MoEConfig, cap: int):
@@ -169,19 +193,24 @@ def _dispatch_gather(params, xf, top_w, top_i, mcfg, cap):
     """Index-based dispatch: no O(T*E*C*d) dispatch products."""
     t, d = xf.shape
     e, k = mcfg.n_experts, mcfg.top_k
-    pos = _positions_in_expert(top_i, mcfg, cap)                   # (T, k)
-    keep = pos < cap
-    flat_e = top_i.reshape(-1)
-    flat_c = torch.clamp(pos.reshape(-1), max=cap - 1)
-    # token id occupying slot (e, c); `t` indexes a zero row for empty slots
-    tok_ids = torch.arange(t, device=xf.device).repeat_interleave(k)
-    upd = torch.where(keep.reshape(-1), tok_ids, t)
-    gidx = flat_e * cap + flat_c
-    slot_token = torch.full((e * cap,), t, dtype=torch.int64, device=xf.device)
-    slot_token.scatter_reduce_(0, gidx, upd, reduce="amin", include_self=True)
-    xz = torch.cat([xf, xf.new_zeros((1, d))])
-    ye = _expert_ffn(params, xz[slot_token].reshape(e, cap, d))    # (E, C, d)
-    # combine: gather each (token, k) pair's slot output, weight, and sum
-    yk = ye.reshape(e * cap, d)[gidx].reshape(t, k, d)
-    w = torch.where(keep, top_w, 0.0).to(xf.dtype)
-    return torch.einsum("tkd,tk->td", yk, w)
+    with tracing.span("moe.dispatch"):
+        pos = _positions_in_expert(top_i, mcfg, cap)               # (T, k)
+        _count_routing(pos, cap)
+        keep = pos < cap
+        flat_e = top_i.reshape(-1)
+        flat_c = torch.clamp(pos.reshape(-1), max=cap - 1)
+        # token id occupying slot (e, c); `t` indexes a zero row for empty slots
+        tok_ids = torch.arange(t, device=xf.device).repeat_interleave(k)
+        upd = torch.where(keep.reshape(-1), tok_ids, t)
+        gidx = flat_e * cap + flat_c
+        slot_token = torch.full((e * cap,), t, dtype=torch.int64, device=xf.device)
+        slot_token.scatter_reduce_(0, gidx, upd, reduce="amin", include_self=True)
+        xz = torch.cat([xf, xf.new_zeros((1, d))])
+        xe = xz[slot_token].reshape(e, cap, d)
+    with tracing.span("moe.experts"):
+        ye = _expert_ffn(params, xe)                               # (E, C, d)
+    with tracing.span("moe.combine"):
+        # gather each (token, k) pair's slot output, weight, and sum
+        yk = ye.reshape(e * cap, d)[gidx].reshape(t, k, d)
+        w = torch.where(keep, top_w, 0.0).to(xf.dtype)
+        return torch.einsum("tkd,tk->td", yk, w)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.api import batchwise, constrain, mesh_axis_size
 from repro_torch.kernels import ops
@@ -168,39 +169,42 @@ def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
     left out to spare a launch)."""
     aux = None
     new_cache = {}
-    h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
-    if not spec.is_attn:
-        if mode == "decode":
-            a, new_cache = S.mamba_decode(params["ssm"], h, cache, cfg.d_model, cfg.ssm)
+    with tracing.span("attn" if spec.is_attn else "mamba"):
+        h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
+        if not spec.is_attn:
+            if mode == "decode":
+                a, new_cache = S.mamba_decode(params["ssm"], h, cache, cfg.d_model, cfg.ssm)
+            else:
+                a, st = S.mamba_forward(params["ssm"], h, cfg.d_model, cfg.ssm, impl=impl)
+                if mode == "prefill":
+                    new_cache = st
+        elif mode == "decode":
+            a, new_cache = _attn_decode(params["attn"], cfg, h, cache, cache_len, impl)
         else:
-            a, st = S.mamba_forward(params["ssm"], h, cfg.d_model, cfg.ssm, impl=impl)
+            window = _window(cfg, spec)
+            a, (k, v) = L.attn_block(params["attn"], h, positions, cfg.rope_theta,
+                                     window=window, causal=True, impl=impl)
             if mode == "prefill":
-                new_cache = st
-    elif mode == "decode":
-        a, new_cache = _attn_decode(params["attn"], cfg, h, cache, cache_len, impl)
-    else:
-        window = _window(cfg, spec)
-        a, (k, v) = L.attn_block(params["attn"], h, positions, cfg.rope_theta,
-                                 window=window, causal=True, impl=impl)
-        if mode == "prefill":
-            new_cache = _build_kv_cache(k, v, window, capacity)
-    x = x + a
-    if spec.has_cross:
-        h = L.rms_norm(x, params["ln_x"], cfg.norm_eps)
-        if mode == "decode":
-            a = _cross_decode(params["cross"], h, cache, impl)
-        else:
-            a, (xk, xv) = L.cross_attn_block(params["cross"], h, enc_out, impl=impl)
-            if mode == "prefill":
-                new_cache["xk"], new_cache["xv"] = xk, xv
+                new_cache = _build_kv_cache(k, v, window, capacity)
         x = x + a
+        if spec.has_cross:
+            h = L.rms_norm(x, params["ln_x"], cfg.norm_eps)
+            if mode == "decode":
+                a = _cross_decode(params["cross"], h, cache, impl)
+            else:
+                a, (xk, xv) = L.cross_attn_block(params["cross"], h, enc_out, impl=impl)
+                if mode == "prefill":
+                    new_cache["xk"], new_cache["xv"] = xk, xv
+            x = x + a
     if "moe" in params:
-        h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
-        mo, aux = MO.moe_apply(params["moe"], h, cfg.moe, impl=moe_impl)
-        x = x + mo
+        with tracing.span("moe"):
+            h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
+            mo, aux = MO.moe_apply(params["moe"], h, cfg.moe, impl=moe_impl)
+            x = x + mo
     elif "mlp" in params:
-        h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
-        x = x + L.mlp(params["mlp"], h)
+        with tracing.span("mlp"):
+            h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
+            x = x + L.mlp(params["mlp"], h)
     # the reference's default layout between layers (its REPRO_SEQ_PARALLEL
     # switch, off by default, is not ported)
     x = constrain(x, "data", None, None)

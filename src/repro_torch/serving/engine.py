@@ -11,7 +11,9 @@ decode step the decode attention kernel; a Mamba2 layer's prefill runs the
 SSD scan kernel (their plain versions on the CPU).  MoE layers dispatch with
 the models' default, ``moe_impl="einsum"``, as the reference engine does;
 their capacity is per batch, so the requests of one batch can change each
-other's outputs (ROADMAP R5).
+other's outputs (ROADMAP R5).  While ``tracing.recording()`` is open, a
+batch, each stage's call, its prefill, each decode step and the final
+synchronize are spans (``repro_torch.tracing``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as D
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 
@@ -70,23 +73,28 @@ class StageServer:
         tokens = np.asarray(tokens, np.int32) % cfg.vocab
         b, s = tokens.shape
         t0 = time.perf_counter()
-        params = self.params[self.active]
-        cap = min(self.max_ctx, s + self.gen_tokens)
-        toks = torch.from_numpy(tokens).to(self.device)
-        with torch.inference_mode():
-            hl, caches, _ = M.prefill(params, cfg, {"tokens": toks}, capacity=cap)
-            tok = torch.argmax(hl @ params["embed"].T, dim=-1)[:, None]
-            out = []
-            clen = s
-            for _ in range(self.gen_tokens):
-                out.append(tok)
-                lg, caches = M.decode_step(params, cfg, caches, clen, tok)
-                tok = torch.argmax(lg, dim=-1)[:, None]
-                clen += 1
-            gen = torch.cat(out, dim=1).to(torch.int32)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return gen.cpu().numpy(), time.perf_counter() - t0
+        with tracing.span("stage"):
+            params = self.params[self.active]
+            cap = min(self.max_ctx, s + self.gen_tokens)
+            toks = torch.from_numpy(tokens).to(self.device)
+            with torch.inference_mode():
+                with tracing.span("prefill"):
+                    hl, caches, _ = M.prefill(params, cfg, {"tokens": toks}, capacity=cap)
+                    tok = torch.argmax(hl @ params["embed"].T, dim=-1)[:, None]
+                out = []
+                clen = s
+                for _ in range(self.gen_tokens):
+                    out.append(tok)
+                    with tracing.span("decode"):
+                        lg, caches = M.decode_step(params, cfg, caches, clen, tok)
+                        tok = torch.argmax(lg, dim=-1)[:, None]
+                    clen += 1
+                gen = torch.cat(out, dim=1).to(torch.int32)
+            with tracing.span("sync"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                gen = gen.cpu().numpy()
+        return gen, time.perf_counter() - t0
 
 
 class PipelineEngine:
@@ -102,9 +110,10 @@ class PipelineEngine:
     def serve(self, tokens: np.ndarray) -> Tuple[np.ndarray, List[float]]:
         lats = []
         cur = tokens
-        for st in self.stages:
-            cur, lat = st.process(cur)
-            lats.append(lat)
+        with tracing.span("batch"):
+            for st in self.stages:
+                cur, lat = st.process(cur)
+                lats.append(lat)
         return cur, lats
 
     @property

@@ -287,6 +287,47 @@ def test_engine_runs_the_kernels():
     assert out.shape == (2, 3) and lat > 0
 
 
+def test_every_device_op_of_a_call_was_launched_inside_its_stage_span():
+    """torch.profiler with device activity only over one stage call of a
+    reduced jamba (K1, K2, K3 and MoE) with the program's recorder on:
+    every device operation has the runtime launch of its correlation id,
+    at a host time inside the call's ``stage`` span.  The spans are on
+    ``time.time_ns``, so this holds only where the profiler's host clock is
+    that one: joining device time to the program's spans rests on it.  The
+    tokens equal those of the call with the recorder off."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    cfg = configs.get_config("jamba-v0.1-52b", reduced=True)
+    srv = StageServer("jamba", [("jamba", cfg, 0.0)], gen_tokens=3, max_ctx=48)
+    prompt = np.arange(80, dtype=np.int32).reshape(2, 40)
+    off, _ = srv.process(prompt)
+    # the profiler closes first: the recording's end reads its device
+    # counters, a copy launched after the stage
+    with tracing.recording() as rec:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            on, _ = srv.process(prompt)
+    np.testing.assert_array_equal(on, off)
+    (at,) = [i for i, sp in enumerate(rec.spans) if sp.name == "stage"]
+    stage = rec.spans[at]
+    cuda = torch.autograd.DeviceType.CUDA
+    launch, ops = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            if not e.is_user_annotation():
+                ops.append((e.name(), e.correlation_id()))
+        elif e.correlation_id():
+            launch[e.correlation_id()] = e.start_ns()
+    assert len(ops) > 50, ops
+    outside = [(n, launch.get(c)) for n, c in ops
+               if not stage.start_ns <= launch.get(c, -1) < stage.end_ns]
+    assert not outside, (stage.start_ns, stage.end_ns, outside[:5])
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    assert rec.counters["moe.pairs"] == n_moe * 2 * cfg.moe.top_k * (40 + 3)
+    assert sum(sp.name == "decode" and sp.parent == at for sp in rec.spans) == 3
+
+
 def test_full_width_layer_kernel_path_matches_naive_path():
     """One yi-34b layer at full width (56 heads over 8 KV heads, hd 128),
     f32 so that the comparison sees the kernels and not bf16 rounding."""
