@@ -148,9 +148,11 @@ def prefill(params, cfg: ModelConfig, batch, *, impl="kernel", moe_impl="einsum"
     return x[:, -1], caches, s
 
 
-def decode_step(params, cfg: ModelConfig, caches, cache_len: int, tokens, *,
+def decode_step(params, cfg: ModelConfig, caches, cache_len, tokens, *,
                 impl="kernel", moe_impl="einsum"):
-    """tokens: (B, 1) integer tensor; cache_len: the current context length.
+    """tokens: (B, 1) integer tensor; cache_len: the current context length,
+    an int or a 0-d integer tensor on the tokens' device (read on the
+    device: a CUDA graph of the step replays at any length).
 
     Returns (logits (B, V), caches).  Attention layers update their KV
     caches in place and cross-attention reads its ``xk``/``xv`` as prefill

@@ -15,6 +15,7 @@ A MoE layer adds its balancing loss to the stack's ``aux``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, NamedTuple, Optional
 
@@ -157,14 +158,16 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device, enc_len: int
 # ---------------------------------------------------------------------------
 def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
                 impl="kernel", moe_impl="einsum", enc_out=None, cache=None,
-                cache_len=None, mode="train", capacity: Optional[int] = None):
+                at: Optional[DecodeAt] = None, mode="train",
+                capacity: Optional[int] = None):
     """Returns (x, new_cache, aux).  ``impl`` picks the kernel, the naive or
     the chunked path of attention (decode takes the naive path for
     ``chunked``, as the reference's decode does), and the kernel or the
     naive path of the SSD scan (``chunked`` runs the naive scan, which is
     what the reference's ``mamba_forward`` runs); ``moe_impl`` the MoE
     dispatch; ``enc_out`` (B, F, d) is the encoder output that a
-    cross-attention layer reads outside decode; aux is the MoE balancing
+    cross-attention layer reads outside decode; ``at`` the decode step's
+    position (``DecodeAt``); aux is the MoE balancing
     loss (0-d f32), None for a layer without MoE (the reference's zero,
     left out to spare a launch)."""
     aux = None
@@ -179,7 +182,7 @@ def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
                 if mode == "prefill":
                     new_cache = st
         elif mode == "decode":
-            a, new_cache = _attn_decode(params["attn"], cfg, h, cache, cache_len, impl)
+            a, new_cache = _attn_decode(params["attn"], cfg, h, cache, at, impl)
         else:
             window = _window(cfg, spec)
             a, (k, v) = L.attn_block(params["attn"], h, positions, cfg.rope_theta,
@@ -241,15 +244,53 @@ def _build_kv_cache(k, v, window, capacity):
     return {"k": k, "v": v}
 
 
-def _attn_decode(params, cfg, h, cache, cache_len: int, impl):
+class DecodeAt:
+    """Where a decode step writes its K/V and how many slots it reads, built
+    once a step from ``cache_len``: a Python int, or a 0-d integer tensor on
+    the step's device, so that a step captured in a CUDA graph reads its
+    position from the device.  ``pos`` (B, 1) int32 is the new token's
+    position, ``slot(cap)`` the slot it takes in a cache of ``cap`` slots
+    (``cache_len % cap``: sliding-window caches are rings), an int or a (1,)
+    int64 tensor, ``lengths(cap)`` (B,) int32 the slots that hold a
+    position, ``min(cache_len + 1, cap)``, and ``valid`` (B,) int32
+    ``cache_len + 1``, which the naive path clamps itself."""
+
+    def __init__(self, cache_len, b: int, device):
+        self.cache_len, self.b, self.device = cache_len, b, device
+        self.on_device = isinstance(cache_len, torch.Tensor)
+        self.pos = self._rows(cache_len)[:, None]
+        self._slot, self._lengths = {}, {}
+
+    @functools.cached_property
+    def valid(self):
+        return self._rows(self.cache_len + 1)
+
+    def _rows(self, n):
+        if self.on_device:
+            return n.to(torch.int32).expand(self.b).contiguous()
+        return torch.full((self.b,), n, dtype=torch.int32, device=self.device)
+
+    def slot(self, cap: int):
+        if not self.on_device:
+            return self.cache_len % cap
+        if cap not in self._slot:
+            self._slot[cap] = torch.remainder(self.cache_len, cap).to(torch.int64).reshape(1)
+        return self._slot[cap]
+
+    def lengths(self, cap: int):
+        if cap not in self._lengths:
+            n = self.cache_len + 1
+            self._lengths[cap] = self._rows(n.clamp(max=cap) if self.on_device else min(n, cap))
+        return self._lengths[cap]
+
+
+def _attn_decode(params, cfg, h, cache, at: DecodeAt, impl):
     """h: (B, 1, d). Insert the new K/V and attend over the cache.
 
     Outside a mesh the port writes the new slot in place, so the returned
     cache is the one passed in (ROADMAP P3).  On a mesh (DTensor caches) it
     inserts with the reference's masked select, which keeps every shard of
     a sharded cache local, and returns new caches."""
-    b = h.shape[0]
-    pos = torch.full((b, 1), cache_len, dtype=torch.int32, device=h.device)
     q = L.project_heads(h, params["wq"])
     k1 = L.project_heads(h, params["wk"])
     v1 = L.project_heads(h, params["wv"])
@@ -262,24 +303,24 @@ def _attn_decode(params, cfg, h, cache, cache_len: int, impl):
         q = constrain(q, "data", None, None, None)
         k1 = constrain(k1, "data", None, None, None)
         v1 = constrain(v1, "data", None, None, None)
-    q = L.apply_rope(q, pos, cfg.rope_theta)
-    k1 = L.apply_rope(k1, pos, cfg.rope_theta)
+    q = L.apply_rope(q, at.pos, cfg.rope_theta)
+    k1 = L.apply_rope(k1, at.pos, cfg.rope_theta)
     cap = cache["k"].shape[1]
-    idx = cache_len % cap
+    idx = at.slot(cap)
     if isinstance(cache["k"], DTensor):
         mask = (torch.arange(cap, device=h.device) == idx)[None, :, None, None]
         cache = dict(cache, k=torch.where(mask, k1, cache["k"]),
                      v=torch.where(mask, v1, cache["v"]))
+    elif at.on_device:
+        cache["k"].index_copy_(1, idx, k1)
+        cache["v"].index_copy_(1, idx, v1)
     else:
         cache["k"][:, idx] = k1[:, 0]
         cache["v"][:, idx] = v1[:, 0]
     if impl == "kernel":
-        lengths = torch.full((b,), min(cache_len + 1, cap), dtype=torch.int32,
-                             device=h.device)
-        o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)[:, None]
+        o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], at.lengths(cap))[:, None]
     elif impl in ("naive", "chunked"):     # the reference decodes on its jnp path
-        valid = torch.full((b,), cache_len + 1, dtype=torch.int32, device=h.device)
-        o = L.attention_decode(q, cache["k"], cache["v"], valid, seq_sharded=seq_sharded)
+        o = L.attention_decode(q, cache["k"], cache["v"], at.valid, seq_sharded=seq_sharded)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
     return L.merge_heads(o, params["wo"]), cache
@@ -309,16 +350,18 @@ def apply_stack(params, cfg: ModelConfig, x, positions, *, impl="kernel",
                 moe_impl="einsum", enc_out=None, caches=None, cache_len=None,
                 mode="train", capacity=None, remat=False):
     """Returns (x, new_caches, aux_total); new_caches is None in train mode.
-    Decode takes its position from ``cache_len`` and ignores
-    ``positions``.  ``remat`` (train mode) recomputes each layer's
-    activations in the backward pass (``torch.utils.checkpoint`` per layer,
-    the reference's ``jax.checkpoint`` per block)."""
+    Decode takes its position from ``cache_len`` (an int, or a 0-d integer
+    tensor on the device) and ignores ``positions``.  ``remat`` (train
+    mode) recomputes each layer's activations in the backward pass
+    (``torch.utils.checkpoint`` per layer, the reference's
+    ``jax.checkpoint`` per block)."""
     new_caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    at = DecodeAt(cache_len, x.shape[0], x.device) if mode == "decode" else None
     for j, spec in enumerate(layer_specs(cfg)):
         kw = dict(impl=impl, moe_impl=moe_impl, enc_out=enc_out,
                   cache=caches[j] if caches is not None else None,
-                  cache_len=cache_len, mode=mode, capacity=capacity)
+                  at=at, mode=mode, capacity=capacity)
         if remat and mode == "train":
             x, nc, a = checkpoint(layer_apply, params[j], cfg, spec, x, positions,
                                   use_reentrant=False, **kw)

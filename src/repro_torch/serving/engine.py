@@ -14,6 +14,12 @@ their capacity is per batch, so the requests of one batch can change each
 other's outputs (ROADMAP R5).  While ``tracing.recording()`` is open, a
 batch, each stage's call, its prefill, each decode step and the final
 synchronize are spans (``repro_torch.tracing``).
+
+On a CUDA device, with plain (not DTensor) parameters and caches, a stage
+replays each decode step from a CUDA graph (``decode_graph``), captured on
+the first call of each (variant, batch rows, cache capacity); the prefill
+runs eagerly.  Elsewhere (the CPU, a mesh) every step runs eagerly.  Each
+step adds one to the host counter ``decode.graph`` or ``decode.eager``.
 """
 from __future__ import annotations
 
@@ -22,11 +28,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import device as D
 from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.serving.decode_graph import DecodeGraph
 
 
 class StageServer:
@@ -48,6 +56,10 @@ class StageServer:
             else:
                 self.params[vname] = M.init(cfg, seed=seed + i, device=self.device)
         self.active = list(self.variants)[0]
+        # (variant, rows, capacity) -> DecodeGraph; one capture stream and
+        # memory pool for all of them, made at the first capture
+        self._graphs: Dict[tuple, DecodeGraph] = {}
+        self._capture = None
 
     # -- control plane hooks -------------------------------------------------
     def set_variant(self, vname: str) -> None:
@@ -81,20 +93,45 @@ class StageServer:
                 with tracing.span("prefill"):
                     hl, caches, _ = M.prefill(params, cfg, {"tokens": toks}, capacity=cap)
                     tok = torch.argmax(hl @ params["embed"].T, dim=-1)[:, None]
+                graph = self._decode_graph(params, cfg, caches, (self.active, b, cap))
                 out = []
-                clen = s
-                for _ in range(self.gen_tokens):
-                    out.append(tok)
-                    with tracing.span("decode"):
-                        lg, caches = M.decode_step(params, cfg, caches, clen, tok)
-                        tok = torch.argmax(lg, dim=-1)[:, None]
-                    clen += 1
+                if graph is None:
+                    clen = s
+                    for _ in range(self.gen_tokens):
+                        out.append(tok)
+                        with tracing.span("decode"):
+                            lg, caches = M.decode_step(params, cfg, caches, clen, tok)
+                            tok = torch.argmax(lg, dim=-1)[:, None]
+                            tracing.count("decode.eager", 1)
+                        clen += 1
+                else:
+                    graph.load(tok, caches, s)
+                    del caches
+                    for _ in range(self.gen_tokens):
+                        out.append(graph.tok.clone())
+                        with tracing.span("decode"):
+                            graph.replay()
+                            tracing.count("decode.graph", 1)
                 gen = torch.cat(out, dim=1).to(torch.int32)
             with tracing.span("sync"):
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 gen = gen.cpu().numpy()
         return gen, time.perf_counter() - t0
+
+    def _decode_graph(self, params, cfg, caches, key) -> Optional[DecodeGraph]:
+        """The decode step's graph for ``key``, captured on its first call,
+        or None where the step runs eagerly: off CUDA, or on DTensors."""
+        if self.device.type != "cuda" or isinstance(params["embed"], DTensor) or any(
+                isinstance(t, DTensor) for c in caches for t in c.values()):
+            return None
+        graph = self._graphs.get(key)
+        if graph is None:
+            if self._capture is None:
+                self._capture = (torch.cuda.Stream(self.device),
+                                 torch.cuda.graph_pool_handle())
+            graph = self._graphs[key] = DecodeGraph(params, cfg, caches, *self._capture)
+        return graph
 
 
 class PipelineEngine:

@@ -24,6 +24,10 @@ are launched inside a span of its own, named ``count``, so that a reader of
 device time by span can leave that work out.  Both do nothing, and launch
 nothing, when no recording is open.
 
+``paused()`` records nothing in its block, whether or not a recording is
+open: a CUDA graph captured in it holds the same operations either way,
+and its replays count nothing.
+
 Nothing is written anywhere: the spans stay in memory and are handed over
 in the ``Recorder`` that ``recording()`` yields.
 """
@@ -139,3 +143,15 @@ def recording() -> Iterator[Recorder]:
     finally:
         _active = None
         rec._stop()
+
+
+@contextlib.contextmanager
+def paused() -> Iterator[None]:
+    """Record no span and no counter in the block, whether or not a
+    recording is open."""
+    global _active
+    rec, _active = _active, None
+    try:
+        yield
+    finally:
+        _active = rec

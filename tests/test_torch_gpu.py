@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version
 (K1 with Sq != Sk too), the model and engine paths through the kernels
-against the naive path (reduced whisper's encoder-decoder included), and
-the MoE layer's two dispatch modes against each other at full width.
+against the naive path (reduced whisper's encoder-decoder included), the
+MoE layer's two dispatch modes against each other at full width, and the
+engine's CUDA graphs of the decode step against the eager step.
 
 Every test is marked ``gpu`` and skips inside the test where there is no
 CUDA device.  The file imports neither jax nor the reference package, so it
@@ -274,16 +275,39 @@ def test_whisper_kernel_path_matches_naive_path():
     _close(out["kernel"], out["naive"], torch.float32)
 
 
+# each kernel wrapper's device kernels, by a piece of their names: K1 and
+# K2 run one kernel a call, K3 a chain that ends in its output kernel
+# (``ssd_kernel`` alone in f32)
+PORT_KERNELS = {"flash_attention": ("::flash_kernel", "::flash_tc_kernel"),
+                "decode_attention": ("::decode_split_",),
+                "ssd_scan": ("::ssd_kernel", "::ssd_out_kernel")}
+
+
+def _device_launches(fn):
+    """``fn()``'s result and each wrapper's kernels that ran on the device
+    in it, counted by name in a torch.profiler trace: the wrappers'
+    ``launches`` count their calls, and a replayed CUDA graph calls none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA
+             and not e.is_user_annotation()]
+    return out, {k: sum(any(p in n for p in pats) for n in names)
+                 for k, pats in PORT_KERNELS.items()}
+
+
 def test_engine_runs_the_kernels():
     _need_cuda()
     fam = configs.get_variant_family("yi-34b")[:1]
     srv = StageServer("yi-34b", fam, gen_tokens=3)
     srv.process(np.zeros((2, 16), np.int32))
-    n1, n2 = K1.flash_attention.launches, K2.decode_attention.launches
-    out, lat = srv.process(np.arange(32, dtype=np.int32).reshape(2, 16))
+    (out, lat), launched = _device_launches(
+        lambda: srv.process(np.arange(32, dtype=np.int32).reshape(2, 16)))
     layers = fam[0][1].n_layers
-    assert K1.flash_attention.launches - n1 == layers
-    assert K2.decode_attention.launches - n2 == 3 * layers
+    assert launched == {"flash_attention": layers, "decode_attention": 3 * layers,
+                        "ssd_scan": 0}
     assert out.shape == (2, 3) and lat > 0
 
 
@@ -324,8 +348,125 @@ def test_every_device_op_of_a_call_was_launched_inside_its_stage_span():
                if not stage.start_ns <= launch.get(c, -1) < stage.end_ns]
     assert not outside, (stage.start_ns, stage.end_ns, outside[:5])
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    assert rec.counters["moe.pairs"] == n_moe * 2 * cfg.moe.top_k * (40 + 3)
+    # the decode steps replay a CUDA graph, which counts nothing: the
+    # prefill's 40 tokens are routed
+    assert rec.counters["moe.pairs"] == n_moe * 2 * cfg.moe.top_k * 40
     assert sum(sp.name == "decode" and sp.parent == at for sp in rec.spans) == 3
+
+
+def _eager_tokens(srv, prompt):
+    """What ``srv`` serves for ``prompt`` from an eager loop of
+    ``M.decode_step`` on its active variant."""
+    cfg, params = srv.config, srv.params[srv.active]
+    b, s = prompt.shape
+    toks = torch.from_numpy(prompt % cfg.vocab).cuda()
+    with torch.inference_mode():
+        hl, caches, _ = M.prefill(params, cfg, {"tokens": toks},
+                                  capacity=min(srv.max_ctx, s + srv.gen_tokens))
+        tok = torch.argmax(hl @ params["embed"].T, dim=-1)[:, None]
+        out = []
+        for i in range(srv.gen_tokens):
+            out.append(tok)
+            lg, caches = M.decode_step(params, cfg, caches, s + i, tok)
+            tok = torch.argmax(lg, dim=-1)[:, None]
+    return torch.cat(out, dim=1).int().cpu().numpy()
+
+
+@pytest.mark.parametrize("arch", ["yi-34b", "jamba-v0.1-52b"])
+def test_decode_graphs_serve_the_eager_loop_s_tokens(arch):
+    """Reduced, bf16, two variants in one server: batches of 1 to 8 (every
+    size the benchmark's cells form), back to back with new prompts (the
+    static caches overwritten), smaller after larger, and a
+    ``set_variant`` between; every call's tokens equal the eager loop's,
+    and every step replays a graph, one per (variant, rows, capacity)."""
+    _need_cuda()
+    from repro_torch import tracing
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True), dtype=torch.bfloat16)
+    srv = StageServer(arch, [("a", cfg, 0.0), ("b", cfg, 0.0)], gen_tokens=6, max_ctx=24)
+    rng = np.random.default_rng(21)
+    plan = [("a", 1), ("a", 3), ("a", 4), ("a", 4), ("a", 3), ("b", 4), ("b", 1), ("a", 1),
+            ("a", 8), ("a", 2), ("a", 5), ("a", 6), ("a", 7), ("a", 2)]
+    for v, b in plan:
+        srv.set_variant(v)
+        prompt = rng.integers(0, cfg.vocab, (b, 16)).astype(np.int32)
+        with tracing.recording() as rec:
+            got, _ = srv.process(prompt)
+        np.testing.assert_array_equal(got, _eager_tokens(srv, prompt))
+        assert rec.counters["decode.graph"] == 6 and "decode.eager" not in rec.counters
+    assert set(srv._graphs) == {(v, b, 22) for v, b in plan}
+
+
+def test_a_graph_captured_under_a_recording_replays_the_same_operations():
+    """Reduced jamba (MoE, whose counters run on the device while a
+    recording is open): a graph captured inside a recording holds the
+    device operations of one captured with none open, and serves the same
+    tokens; its replays count nothing, so the MoE counters hold the
+    prefill's routing."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    cfg = configs.get_config("jamba-v0.1-52b", reduced=True)
+    prompt = np.arange(160, dtype=np.int32).reshape(4, 40)
+    off_srv, on_srv = (StageServer("jamba", [("jamba", cfg, 0.0)], gen_tokens=3, max_ctx=48)
+                       for _ in range(2))
+    off, _ = off_srv.process(prompt)
+    with tracing.recording() as rec:
+        on, _ = on_srv.process(prompt)
+    np.testing.assert_array_equal(on, off)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    assert rec.counters["moe.pairs"] == n_moe * 4 * cfg.moe.top_k * 40
+    assert rec.counters["decode.graph"] == 3
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = []
+    for srv in (off_srv, on_srv):
+        (graph,) = srv._graphs.values()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        kernels.append([e.name() for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == cuda and not e.is_user_annotation()])
+    assert len(kernels[0]) > 50 and kernels[0] == kernels[1]
+
+
+def _graph_against_eager(cfg, b, s, steps):
+    """Logits of ``steps`` graph replays and of as many eager decode steps
+    from one prefill, and the K2 launches of the replays."""
+    from repro_torch.serving.decode_graph import DecodeGraph
+    params = M.init(cfg, seed=0)
+    toks = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab, (b, s))).cuda()
+    with torch.inference_mode():
+        hl, caches, _ = M.prefill(params, cfg, {"tokens": toks}, capacity=s + steps)
+        tok = torch.argmax(hl @ params["embed"].T, dim=-1)[:, None]
+        graph = DecodeGraph(params, cfg, caches, torch.cuda.Stream(),
+                            torch.cuda.graph_pool_handle())
+        graph.load(tok, caches, s)
+        got, want = [], []
+
+        def replays():
+            for _ in range(steps):
+                graph.replay()
+                got.append(graph.logits.clone())
+        _, launched = _device_launches(replays)
+        for i in range(steps):
+            lg, caches = M.decode_step(params, cfg, caches, s + i, tok)
+            want.append(lg)
+            tok = torch.argmax(lg, dim=-1)[:, None]
+    return torch.stack(got), torch.stack(want), launched["decode_attention"]
+
+
+@pytest.mark.parametrize("arch,layers,b,s", [("yi-34b", 1, 8, 8), ("jamba-v0.1-52b", 5, 4, 64)])
+def test_a_graph_replay_equals_the_eager_step_at_full_width(arch, layers, b, s):
+    """yi-34b's layer (56 heads over 8 KV heads, hd 128) at the vlm cell's
+    batch, and jamba's first five layers (Mamba2, MoE of 16 experts top-2,
+    the attention layer) at its cell's batch, bf16 at published widths:
+    each replay's logits equal the eager step's bit for bit, and a replay
+    runs K2 once in each attention layer."""
+    _need_cuda()
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+    got, want, launched = _graph_against_eager(cfg, b, s, 3)
+    assert torch.equal(got, want)
+    assert launched == 3 * sum(cfg.is_attn_layer(i) for i in range(layers))
 
 
 def test_full_width_layer_kernel_path_matches_naive_path():
