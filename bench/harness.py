@@ -2,9 +2,11 @@
 warm it up, drive the window with the cell's traffic, check what it served
 against the plain reference, and read the metrics.
 
-Everything that belongs to a configuration, a traffic mix or a metric is
-found by name: ``bench/configs/<config>.json``, ``bench/traffic/<cell>.json``
-and ``bench/metrics/<metric>.py`` (each metric file has ``LAYER``, ``UNIT``,
+Everything that belongs to a configuration, a traffic mix, an architecture
+or a metric is found by name: ``bench/configs/<config>.json``,
+``bench/traffic/<cell>.json``, each stage's ``bench/layouts/<layout>.py``
+and ``bench/reference/<layout>.py`` (``bench/spec.py::layout``), and
+``bench/metrics/<metric>.py`` (each metric file has ``LAYER``, ``UNIT``,
 ``SOURCE`` and ``read(ctx)``, which returns a number or None where it finds
 nothing to read).  The program is taken through its entry points only:
 ``StageServer`` and ``PipelineEngine`` (``serving/engine.py``) and
@@ -38,28 +40,6 @@ def forbidden_modules() -> List[str]:
     """Top-level names in sys.modules that the port's runs may not load,
     compared whole (``repro_torch`` is not ``repro``)."""
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
-
-
-def port_config(st: dict, dtype=torch.bfloat16):
-    from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
-    kw = dict(arch_id=st["arch_id"], family=st["family"], n_layers=st["num_hidden_layers"],
-              d_model=st["hidden_size"], n_heads=st["num_attention_heads"],
-              n_kv_heads=st["num_key_value_heads"], head_dim=st["head_dim"],
-              d_ff=st["intermediate_size"], vocab=st["vocab_size"],
-              rope_theta=st["rope_theta"], norm_eps=st["rms_norm_eps"], dtype=dtype)
-    if st["family"] == "hybrid":
-        kw.update(attn_every=st["attn_layer_period"], attn_offset=st["attn_layer_offset"],
-                  ssm=SSMConfig(d_state=st["mamba_d_state"], head_dim=st["mamba_head_dim"],
-                                expand=st["mamba_expand"], d_conv=st["mamba_d_conv"],
-                                n_groups=st["mamba_n_groups"],
-                                chunk_size=st["mamba_chunk_size"]))
-    if "num_experts" in st:
-        kw["moe"] = MoEConfig(n_experts=st["num_experts"], top_k=st["num_experts_per_tok"],
-                              d_ff_expert=st["expert_intermediate_size"],
-                              capacity_factor=st["capacity_factor"],
-                              every=st["expert_layer_period"],
-                              offset=st["expert_layer_offset"])
-    return ModelConfig(**kw)
 
 
 def load_metric(name: str):
@@ -157,10 +137,10 @@ def build(cell: Cell, seed: int, device):
     for k, (st, (prompt, gen)) in enumerate(zip(cell.stages, cell.lengths())):
         w = weights.make_weights(st, seed, k, device)
         ws.append(w)
-        cfg = port_config(st)
-        servers.append(StageServer(st["arch_id"], [(st["arch_id"], cfg, 0.0)],
+        lay = spec.layout(st)
+        servers.append(StageServer(st["arch_id"], [(st["arch_id"], lay.port_config(st), 0.0)],
                                    gen_tokens=gen, max_ctx=prompt + gen,
-                                   params_by_variant={st["arch_id"]: weights.to_port(w, st)},
+                                   params_by_variant={st["arch_id"]: lay.to_port(w, st)},
                                    device=device))
     return ws, PipelineEngine(servers)
 

@@ -1,8 +1,9 @@
 """A kernel role's roofline share: the summed least time of every call the
-served batches made (bench/roofline.py, from shapes) over the device time
-of the kernels whose names the role's metric lists, in percent.  None
-where the trace holds no such kernel."""
-from bench import roofline
+served batches made (each stage's layout's ``kernel_bounds``, from shapes
+by bench/roofline.py's bounds; 0 in a stage that makes no call of the
+role) over the device time of the kernels whose names the role's metric
+lists, in percent.  None where the trace holds no such kernel."""
+from bench import spec
 
 
 def share(ctx, role, names):
@@ -15,5 +16,5 @@ def share(ctx, role, names):
     bound_ms = 0.0
     for b in ctx.run.batches:
         for st, (prompt, gen) in zip(ctx.cell.stages, ctx.lengths):
-            bound_ms += roofline.kernel_bounds(st, len(b.rids), prompt, gen)[role]
+            bound_ms += spec.layout(st).kernel_bounds(st, len(b.rids), prompt, gen).get(role, 0.0)
     return 100.0 * bound_ms * 1e-3 / dev_s

@@ -1,7 +1,8 @@
-"""The model FLOPs the served batches needed (bench/roofline.py's count
-from the configuration and each batch's size and lengths) over the summed
-batch service time at the H100's bf16 peak, in percent."""
-from bench import roofline
+"""The model FLOPs the served batches needed (each stage's layout's
+``batch_flops``, from the configuration and each batch's size and lengths;
+bench/roofline.py says what is counted) over the summed batch service time
+at the H100's bf16 peak, in percent."""
+from bench import roofline, spec
 
 LAYER, UNIT, SOURCE = "model step (models/model.py, stack.py)", "%", "program_span"
 
@@ -12,6 +13,6 @@ def read(ctx):
         if not b.stage_lats:
             continue
         for st, (prompt, gen), lat in zip(ctx.cell.stages, ctx.lengths, b.stage_lats):
-            flops += roofline.batch_flops(st, len(b.rids), prompt, gen)
+            flops += spec.layout(st).batch_flops(st, len(b.rids), prompt, gen)
             secs += lat
     return 100.0 * flops / (secs * roofline.PEAK_FLOPS["bf16"]) if secs else None

@@ -32,9 +32,9 @@ def _plan(st, rows, prompt_len, n_out):
     """The reference's routing groups in the order it routes them: each
     MoE layer, each segment (the prompt, then each decoded position), each
     group of the segment's tokens; as (layer, segment, first row, rows)."""
-    from bench import spec
+    from bench.layouts import decoder
     gs = st["moe_group_size"]
-    moe_layers = [i for i in range(st["num_hidden_layers"]) if spec.is_moe(st, i)]
+    moe_layers = [i for i in range(st["num_hidden_layers"]) if decoder.is_moe(st, i)]
     out = []
     for m in range(len(moe_layers)):
         for j, n in enumerate([rows * prompt_len] + [rows] * (n_out - 1)):
@@ -50,7 +50,8 @@ def compare(cell, seed: int, batches: int, device) -> dict:
     import numpy as np
     import torch
     from bench import harness
-    from bench.reference import model as ref
+    from bench.reference import decoder as ref
+    from bench.reference.model import gaps
     from repro_torch.models import moe as MO
 
     (st,) = cell.stages
@@ -112,7 +113,7 @@ def compare(cell, seed: int, batches: int, device) -> dict:
                     (lg,) = ref.forward(ws[0], st, [batch], prompt_len, gen)
                 finally:
                     ref._top_k = real_top_k
-                sink.append(ref.gaps(lg, chosen))
+                sink.append(gaps(lg, chosen))
             assert len(mine) == len(plan), (len(mine), len(plan))
             for (m, j, a, tg), r in zip(plan, mine):
                 p = prog_by[(m, j)][a:a + tg]

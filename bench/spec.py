@@ -1,10 +1,14 @@
 """Read the benchmark's data files: configurations, traffic mixes and the
-cells of ``BENCHMARK.json``.  Plain Python: the reference and the weight
-maker import this, and neither may import the program.
+cells of ``BENCHMARK.json``; and find a stage's layout by name.  Plain
+Python: the reference and the weight maker import this, and neither may
+import the program.
 """
 from __future__ import annotations
 
+import importlib
+import importlib.util
 import json
+import sys
 from pathlib import Path
 
 BENCH_DIR = Path(__file__).resolve().parent
@@ -34,23 +38,36 @@ def traffic(name: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# one stage's layer pattern, from its configuration's keys
+# a stage's layout, by the name its configuration gives
 # ---------------------------------------------------------------------------
-def is_attn(st: dict, i: int) -> bool:
-    if st["family"] != "hybrid":
-        return True
-    return i % st["attn_layer_period"] == st["attn_layer_offset"]
+PARTS = ("layouts", "reference")
 
 
-def is_moe(st: dict, i: int) -> bool:
-    if "num_experts" not in st:
-        return False
-    return i % st["expert_layer_period"] == st["expert_layer_offset"]
+def layout(st: dict):
+    """The module ``bench/layouts/<layout>.py`` of the stage's layout: its
+    weights, the program's tree and config over them, its counts, its tiny
+    copy."""
+    return _part(st, "layouts")
 
 
-def mamba_dims(st: dict) -> dict:
-    d = st["hidden_size"]
-    din = st["mamba_expand"] * d
-    gn = st["mamba_n_groups"] * st["mamba_d_state"]
-    return {"d_inner": din, "gn": gn, "heads": din // st["mamba_head_dim"],
-            "conv_dim": din + 2 * gn}
+def reference(st: dict):
+    """The module ``bench/reference/<layout>.py``: the layout's plain
+    float32 ``forward``."""
+    return _part(st, "reference")
+
+
+def _part(st: dict, part: str):
+    name = st.get("layout")
+    mod = sys.modules.get(f"bench.{part}.{name}")
+    if mod is not None:
+        return mod
+    if not (isinstance(name, str) and name.isidentifier()):
+        raise LookupError(f"stage {st.get('arch_id')!r} names no layout: give it the key 'layout', "
+                          f"a Python identifier, and add bench/layouts/<layout>.py and "
+                          f"bench/reference/<layout>.py")
+    missing = [f"bench/{p}/{name}.py" for p in PARTS
+               if importlib.util.find_spec(f"bench.{p}.{name}") is None]
+    if missing:
+        raise LookupError(f"stage {st.get('arch_id')!r} has the layout {name!r}: add "
+                          f"{' and '.join(missing)}")
+    return importlib.import_module(f"bench.{part}.{name}")

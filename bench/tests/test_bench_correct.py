@@ -11,11 +11,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from bench import harness
+from bench import harness, spec
 from bench.tests.tiny import tiny_cell
 
 ROOT = Path(__file__).resolve().parents[2]
-CELLS = ["vlm-classify.steady", "jamba-2p.longdoc", "vlm-classify.backlog"]
+CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
 
 
 def _run(cell, seed=11):

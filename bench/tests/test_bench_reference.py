@@ -7,18 +7,20 @@ import pytest
 import torch
 
 from bench import harness, spec, weights
-from bench.reference import model as ref
-from bench.tests.tiny import tiny_stage
+from bench.layouts import decoder
+from bench.reference import decoder as ref
 
 BENCH = Path(__file__).resolve().parents[1]
+CONFIGS = [c["name"] for c in spec.benchmark()["configs"]]
 
 
 def _port_logits(st, w, tokens, prompt_len):
     """The program's prefill then decode steps on its plain paths, fed the
     same tokens: the logits of the last prompt position and each fed one."""
     from repro_torch.models import model as M
-    cfg = harness.port_config(st, dtype=torch.float32)
-    params = weights.to_port(w, st)
+    lay = spec.layout(st)
+    cfg = lay.port_config(st, dtype=torch.float32)
+    params = lay.to_port(w, st)
     t = tokens.shape[1]
     with torch.inference_mode():
         hl, caches, _ = M.prefill(params, cfg, {"tokens": tokens[:, :prompt_len]},
@@ -30,16 +32,17 @@ def _port_logits(st, w, tokens, prompt_len):
     return torch.stack(out, 1)
 
 
-@pytest.mark.parametrize("config", ["vlm-classify", "jamba-2p"])
+@pytest.mark.parametrize("config", CONFIGS)
 def test_reference_matches_the_program_s_plain_path(config):
     prompt_len, fed = 24, 5
     for k, full in enumerate(spec.config(config)["stages"]):
-        st = dict(tiny_stage(full), num_hidden_layers=min(full["num_hidden_layers"], 8))
+        st = dict(spec.layout(full).tiny(full),
+                  num_hidden_layers=min(full["num_hidden_layers"], 8))
         w = weights.make_weights(st, 7, k, "cpu", dtype=torch.float32)
         tokens = torch.randint(0, st["vocab_size"], (3, prompt_len + fed),
                                generator=torch.Generator().manual_seed(k))
         want = _port_logits(st, w, tokens, prompt_len)
-        got = ref.forward(w, st, [tokens], prompt_len, fed + 1)[0]
+        got = spec.reference(st).forward(w, st, [tokens], prompt_len, fed + 1)[0]
         assert got.shape == want.shape
         torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
 
@@ -49,7 +52,7 @@ def test_moe_groups_and_capacity_match_the_program():
     are two groups in both."""
     from repro_torch.configs.base import MoEConfig
     from repro_torch.models import moe as MO
-    st = tiny_stage(spec.config("jamba-2p")["stages"][0], d=32)
+    st = decoder.tiny(spec.config("jamba-2p")["stages"][0], d=32)
     st["expert_intermediate_size"] = 16
     w = weights.make_weights(dict(st, num_hidden_layers=2), 3, 0, "cpu", dtype=torch.float32)
     p = "layers.1.moe."
@@ -76,18 +79,9 @@ def test_routing_witness_counts_flips_and_follows_the_program_s_routing():
     assert got["program_routing"]["logit_gap"] < got["own_routing"]["logit_gap"]
 
 
-def test_weights_are_seeded_and_cover_the_program_s_tree():
-    st = tiny_stage(spec.config("jamba-2p")["stages"][0])
-    a = weights.make_weights(st, 2 ** 31 + 5, 0, "cpu")
-    b = weights.make_weights(st, 2 ** 31 + 5, 0, "cpu")
-    c = weights.make_weights(st, 2 ** 31 + 6, 0, "cpu")
-    assert all(torch.equal(a[k], b[k]) for k in a)
-    assert not torch.equal(a["embed_tokens"], c["embed_tokens"])
-    assert weights.n_bytes(st) == sum(t.numel() * t.element_size() for t in a.values())
+@pytest.mark.parametrize("config", CONFIGS)
+def test_weights_are_seeded_and_cover_the_program_s_tree(config):
     from repro_torch.models import model as M
-    cfg = harness.port_config(st)
-    mine = weights.to_port(a, st)
-    theirs = M.init(cfg, device="meta")
 
     def shapes(tree, pre=""):
         if isinstance(tree, dict):
@@ -95,7 +89,17 @@ def test_weights_are_seeded_and_cover_the_program_s_tree():
         if isinstance(tree, list):
             return {k2: v2 for i, v in enumerate(tree) for k2, v2 in shapes(v, f"{pre}{i}.").items()}
         return {pre: (tuple(tree.shape), tree.dtype)}
-    assert shapes(mine) == shapes(theirs)
+    for full in spec.config(config)["stages"]:
+        lay = spec.layout(full)
+        st = lay.tiny(full)
+        a = weights.make_weights(st, 2 ** 31 + 5, 0, "cpu")
+        b = weights.make_weights(st, 2 ** 31 + 5, 0, "cpu")
+        c = weights.make_weights(st, 2 ** 31 + 6, 0, "cpu")
+        assert all(torch.equal(a[k], b[k]) for k in a)
+        assert not torch.equal(a["embed_tokens"], c["embed_tokens"])
+        assert weights.n_bytes(st) == sum(t.numel() * t.element_size() for t in a.values())
+        theirs = M.init(lay.port_config(st), device="meta")
+        assert shapes(lay.to_port(a, st)) == shapes(theirs)
 
 
 def test_full_width_sizes():
@@ -105,8 +109,8 @@ def test_full_width_sizes():
     assert gib["jamba-2p"] == pytest.approx(47.93, abs=0.01)
 
 
-def _imports(path: Path):
-    tree = ast.parse(path.read_text())
+def _imports(path: Path, tree=None):
+    tree = tree or ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
@@ -122,6 +126,17 @@ def test_no_module_imports_jax_or_the_reference_package():
         assert not tops & {"jax", "jaxlib", "flax", "repro"}, f
     for f in (BENCH / "reference").rglob("*.py"):
         assert not any(m.split(".")[0] == "repro_torch" for m in _imports(f)), f
+
+
+def test_layouts_import_the_program_only_inside_port_config():
+    files = sorted((BENCH / "layouts").glob("*.py"))
+    assert BENCH / "layouts" / "decoder.py" in files
+    for f in files:
+        mod = ast.parse(f.read_text())
+        outside = [n for n in mod.body
+                   if not (isinstance(n, ast.FunctionDef) and n.name == "port_config")]
+        tops = {m.split(".")[0] for n in outside for m in _imports(f, n)}
+        assert "repro_torch" not in tops, f
 
 
 def test_forbidden_modules_compares_whole_top_level_names(monkeypatch):
