@@ -240,6 +240,34 @@ DECODE_SHAPES = (("phi-3 decode", 32, 32, 96, PROMPT + GEN, PROMPT + 1),
                  ("whisper self decode", 16, 16, 64, WHISPER_PROMPT + GEN, WHISPER_PROMPT + 1),
                  ("whisper cross decode", 16, 16, 64, 1500, 1500))
 
+# K1 at the serving paths' prefill shapes: phi-3 stage (prompt 256), yi stage
+# (prompt = phi-3's 8 tokens); nlp-chain: gemma3's local and global layers
+# (prompt 1280, and 1100 with the window's edge inside a tile), qwen2-moe's
+# stage (prompt = gemma3's 8 tokens) and its kernel-vs-naive prompt; jamba's
+# attention layer; whisper-medium: its encoder (non-causal over 1500
+# frames), its decoder's self-attention prefill and its cross-attention
+# prefill (the prompt over the frames).  (label, B, Sq, Sk, H, KV, hd,
+# window, causal)
+K1_ROWS = (
+    ("phi-3 prefill", BATCH, PROMPT, PROMPT, 32, 32, 96, None, True),
+    ("yi-34b prefill", BATCH, GEN, GEN, 56, 8, 128, None, True),
+    ("yi-34b S=512", BATCH, 512, 512, 56, 8, 128, None, True),
+    ("gemma3 local prefill", BATCH, NLP_PROMPT, NLP_PROMPT, 32, 16, 128, 1024, True),
+    ("gemma3 local S=1100", BATCH, 1100, 1100, 32, 16, 128, 1024, True),
+    ("gemma3 global prefill", BATCH, NLP_PROMPT, NLP_PROMPT, 32, 16, 128, None, True),
+    ("qwen2-moe prefill", BATCH, GEN, GEN, 16, 16, 128, None, True),
+    ("qwen2-moe S=256", BATCH, QWEN_PROMPT, QWEN_PROMPT, 16, 16, 128, None, True),
+    ("jamba prefill", BATCH, JAMBA_PROMPT, JAMBA_PROMPT, 32, 8, 128, None, True),
+    ("whisper encoder", BATCH, 1500, 1500, 16, 16, 64, None, False),
+    ("whisper self prefill", BATCH, WHISPER_PROMPT, WHISPER_PROMPT, 16, 16, 64, None,
+     True),
+    ("whisper cross prefill", BATCH, WHISPER_PROMPT, 1500, 16, 16, 64, None, False))
+# Kimi-K2-Instruct's latent-attention prefill (kimi-k2-s0.backlog's batch):
+# q and k of 192 (128 + 64 RoPE), v of 128, 64 heads, YaRN's softmax scale
+# 192^-0.5 * (0.1 ln 32 + 1)^2.  (label, B, S, H, hd, hd_v, scale)
+K1_MLA_ROW = ("kimi-k2 MLA prefill", 4, 8192, 64, 192, 128,
+              192 ** -0.5 * (0.1 * math.log(32) + 1) ** 2)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -411,14 +439,15 @@ def phase_build():
     # the kernels' shared memory is dynamic, so ptxas does not report it
     k1 = _build.load("flash_attention")
     for fn in (k1.repro_flash_attention_smem_bytes, k1.repro_flash_attention_blocks_per_sm):
-        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
     occ = {}
-    for hd in (32, 64, 96, 128):
+    for hd, hd_v in K1.HEAD_DIM_PAIRS:
         for bf, label in ((1, "bf16 tensor cores"), (0, "f32 CUDA cores")):
-            occ[("flash_attention", hd, bf)] = k1.repro_flash_attention_blocks_per_sm(hd, bf)
-            log(f"flash_attention hd{hd} {label}: "
-                f"{k1.repro_flash_attention_smem_bytes(hd, bf)} B shared a block, "
-                f"{occ[('flash_attention', hd, bf)]} blocks per SM")
+            occ[("flash_attention", hd, hd_v, bf)] = k1.repro_flash_attention_blocks_per_sm(
+                hd, hd_v, bf)
+            log(f"flash_attention hd{hd}/{hd_v} {label}: "
+                f"{k1.repro_flash_attention_smem_bytes(hd, hd_v, bf)} B shared a block, "
+                f"{occ[('flash_attention', hd, hd_v, bf)]} blocks per SM")
     k2 = _build.load("decode_attention")
     for fn in (k2.repro_decode_attention_stages, k2.repro_decode_attention_smem_bytes,
                k2.repro_decode_attention_blocks_per_sm):
@@ -449,7 +478,7 @@ def phase_build():
             f"{k3.repro_ssd_scan_smem_bytes(i)} B shared a block (every width), "
             f"{occ[('ssd_scan', i)]} blocks per SM")
     # the bf16 serving paths: two or more resident blocks an SM
-    assert min(occ[("flash_attention", hd, 1)] for hd in (96, 128)) >= 2, occ
+    assert min(occ[("flash_attention", hd, hd, 1)] for hd in (96, 128)) >= 2, occ
     assert min(occ[("ssd_scan", i)]
                for i in range(1, k3.repro_ssd_scan_kernel_count())) >= 2, occ
     # K2: every block of a decode step resident at once (one wave)
@@ -671,6 +700,38 @@ def phase_parity():
     return rows
 
 
+def _time_k1_mla(gen):
+    """K1 at latent attention's prefill shape (``K1_MLA_ROW``): the kernel
+    against its plain version on the first row (eight heads at a time: the
+    plain version's scores of all 64 would take 17 GB), its time by CUDA
+    events and by device time, and the bound on the real head dims (2 x 64
+    x (192 + 128) operations a kept pair, which ``flash_bound`` at hd 160
+    counts).  No SDPA time: cuDNN's path is not comparable at Dv != Dqk."""
+    label, b, s, h, hd, hd_v, scale = K1_MLA_ROW
+    bf = torch.bfloat16
+    q, k = _randn(gen, (b, s, h, hd), bf), _randn(gen, (b, s, h, hd), bf)
+    v = _randn(gen, (b, s, h, hd_v), bf)
+    kern = lambda q, k, v: K1.flash_attention(q, k, v, scale=scale)  # noqa: E731
+    got = kern(q, k, v)
+    err = 0.0
+    for h0 in range(0, h, 8):
+        heads = slice(h0, h0 + 8)
+        want = K1.flash_attention_plain(*(t[:1, :, heads].contiguous() for t in (q, k, v)),
+                                        scale=scale).float()
+        err = max(err, (got[:1, :, heads].float() - want).abs().max().item())
+        assert torch.allclose(got[:1, :, heads].float(), want, atol=TOL[bf], rtol=TOL[bf]), \
+            (label, err)
+    del got
+    ms = cuda_ms(kern, [(q, k, v)], iters=10)
+    dev, _ = _log_device_kernels(f"K1 {label} bf16", kern, q, k, v, reps=2)
+    bound, by = flash_bound(b, s, s, h, h, (hd + hd_v) // 2, bf)
+    log(f"time K1 {label} B={b} S={s} H={h} KV={h} hd={hd}/{hd_v} scale={scale:.5f} bf16: "
+        f"kernel {ms:.4f} ms (device {dev:.4f}), bound {bound:.4f} ms ({by}), "
+        f"{100 * bound / dev:.1f}% of it; max abs err vs plain (row 0) {err:.3e}")
+    return dict(ms=ms, bound_ms=bound, bound_by=by, max_abs_err=err, device_ms=dev,
+                plain_ms=None, library_ms=None)
+
+
 def _k2_repeated_calls(gen):
     """K2's arrival counters reset: the phi-3 decode shape five times with
     new lengths, then the yi-34b and a reduced f32 shape in turn, each
@@ -702,27 +763,7 @@ def phase_timing():
     gen = torch.Generator(device=DEV).manual_seed(1)
     bf = torch.bfloat16
     out = {}
-    # prefill: phi-3 stage (prompt 256), yi stage (prompt = phi-3's 8 tokens);
-    # nlp-chain: gemma3's local and global layers (prompt 1280, and 1100 with
-    # the window's edge inside a tile), qwen2-moe's stage (prompt = gemma3's
-    # 8 tokens) and its kernel-vs-naive prompt; jamba's attention layer
-    # whisper-medium: its encoder (non-causal over 1500 frames), its
-    # decoder's self-attention prefill and its cross-attention prefill (the
-    # prompt over the frames)
-    for label, b, s, sk, h, kv, hd, window, causal in (
-            ("phi-3 prefill", BATCH, PROMPT, PROMPT, 32, 32, 96, None, True),
-            ("yi-34b prefill", BATCH, GEN, GEN, 56, 8, 128, None, True),
-            ("yi-34b S=512", BATCH, 512, 512, 56, 8, 128, None, True),
-            ("gemma3 local prefill", BATCH, NLP_PROMPT, NLP_PROMPT, 32, 16, 128, 1024, True),
-            ("gemma3 local S=1100", BATCH, 1100, 1100, 32, 16, 128, 1024, True),
-            ("gemma3 global prefill", BATCH, NLP_PROMPT, NLP_PROMPT, 32, 16, 128, None, True),
-            ("qwen2-moe prefill", BATCH, GEN, GEN, 16, 16, 128, None, True),
-            ("qwen2-moe S=256", BATCH, QWEN_PROMPT, QWEN_PROMPT, 16, 16, 128, None, True),
-            ("jamba prefill", BATCH, JAMBA_PROMPT, JAMBA_PROMPT, 32, 8, 128, None, True),
-            ("whisper encoder", BATCH, 1500, 1500, 16, 16, 64, None, False),
-            ("whisper self prefill", BATCH, WHISPER_PROMPT, WHISPER_PROMPT, 16, 16, 64, None,
-             True),
-            ("whisper cross prefill", BATCH, WHISPER_PROMPT, 1500, 16, 16, 64, None, False)):
+    for label, b, s, sk, h, kv, hd, window, causal in K1_ROWS:
         q = _randn(gen, (b, s, h, hd), bf)
         k, v = _randn(gen, (b, sk, kv, hd), bf), _randn(gen, (b, sk, kv, hd), bf)
         sets = copies((q, k, v))
@@ -754,6 +795,7 @@ def phase_timing():
                                               f32_ms=ms32, device_ms=dev,
                                               library_device_ms=dev_lib,
                                               library_backend=sdpa_backend(names))
+    out[("flash_attention", K1_MLA_ROW[0])] = _time_k1_mla(gen)
     for label, h, kv, hd, L, n in DECODE_SHAPES:
         q = _randn(gen, (BATCH, h, hd), bf)
         k, v = _randn(gen, (BATCH, L, kv, hd), bf), _randn(gen, (BATCH, L, kv, hd), bf)

@@ -3,6 +3,7 @@ from repro_torch.configs import (
     gemma3_27b,
     jamba_v0p1_52b,
     kimi_k2_1t_a32b,
+    kimi_k2_instruct,
     mamba2_2p7b,
     phi3_vision_4p2b,
     qwen2_moe_a2p7b,
@@ -18,9 +19,11 @@ from repro_torch.configs.base import (
     PREFILL_32K,
     TRAIN_4K,
     InputShape,
+    MLAConfig,
     ModelConfig,
     MoEConfig,
     SSMConfig,
+    YarnConfig,
 )
 
 _ARCH_MODULES = {
@@ -40,13 +43,17 @@ _ARCH_MODULES = {
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
+# architectures the port runs beyond the reference's ten (no variant family,
+# no dry run): get_config finds them, ARCH_IDS does not list them
+_EXTRA_MODULES = {m.ARCH_ID: m for m in (kimi_k2_instruct,)}
 
 
 def arch_module(arch_id: str):
-    try:
-        return _ARCH_MODULES[arch_id]
-    except KeyError:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCH_MODULES)}")
+    mod = _ARCH_MODULES.get(arch_id) or _EXTRA_MODULES.get(arch_id)
+    if mod is None:
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{sorted(_ARCH_MODULES) + sorted(_EXTRA_MODULES)}")
+    return mod
 
 
 def get_config(arch_id: str, *, reduced: bool = False) -> ModelConfig:

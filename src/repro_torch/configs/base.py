@@ -30,6 +30,27 @@ class MoEConfig:
     # starting at `offset` (jamba: every 2nd; qwen2/kimi: every layer).
     every: int = 1
     offset: int = 0
+    # -- routing (port only; the defaults are the reference's layer; left out
+    # of repr, so a reference family's config prints as it always has) ------
+    # "softmax": softmax top-k with capacity, the reference's.  "sigmoid":
+    # DeepSeek-V3's noaux_tc (Kimi-K2): sigmoid scores in f32, the top-k
+    # chosen by score + a learned f32 bias, weighted by the unbiased scores
+    # normalised and times ``routed_scale``; dropless, so no capacity.
+    router: str = dataclasses.field(default="softmax", repr=False)
+    routed_scale: float = dataclasses.field(default=1.0, repr=False)
+    # expert parallelism: this layer holds experts [rank * n / size,
+    # (rank + 1) * n / size) of the router's ``n_experts`` and computes only
+    # their part of the result (the exchange between ranks is not run).
+    ep_rank: int = dataclasses.field(default=0, repr=False)
+    ep_size: int = dataclasses.field(default=1, repr=False)
+
+    @property
+    def n_held(self) -> int:
+        return self.n_experts // self.ep_size
+
+    @property
+    def first_held(self) -> int:
+        return self.ep_rank * self.n_held
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +67,34 @@ class SSMConfig:
 
     def d_inner(self, d_model: int) -> int:
         return self.expand * d_model
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2/V3, Kimi-K2): queries
+    through a ``q_lora_rank`` bottleneck, keys and values from one
+    ``kv_lora_rank`` latent a token plus a ``qk_rope_head_dim`` RoPE key
+    that every head shares; a head's query and key are [nope | rope]."""
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnConfig:
+    """YaRN RoPE scaling as DeepSeek-V3's published code applies it."""
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +127,12 @@ class ModelConfig:
     encoder_seq: int = 0            # precomputed frame embeddings length
     # -- vision-language ------------------------------------------------------
     n_patches: int = 0              # precomputed patch embeddings length
+    # -- port only: latent attention, YaRN, leading dense layers (left out of
+    # repr, as MoEConfig's port-only fields are) ------------------------------
+    mla: Optional[MLAConfig] = dataclasses.field(default=None, repr=False)
+    rope_scaling: Optional[YarnConfig] = dataclasses.field(default=None, repr=False)
+    # layers before it keep the dense MLP
+    first_k_dense: int = dataclasses.field(default=0, repr=False)
     # -- misc -----------------------------------------------------------------
     norm_eps: float = 1e-6
     mlp_gated: bool = True          # SwiGLU (3 mats) vs plain GELU (2 mats)
@@ -107,7 +162,7 @@ class ModelConfig:
         return (i % self.global_every) == (self.global_every - 1)
 
     def is_moe_layer(self, i: int) -> bool:
-        if self.moe is None:
+        if self.moe is None or i < self.first_k_dense:
             return False
         return (i % self.moe.every) == self.moe.offset
 
@@ -127,7 +182,9 @@ class ModelConfig:
             p += self.vocab * d
         for i in range(self.n_layers):
             p += 2 * d                           # norms
-            if self.is_attn_layer(i):
+            if self.is_attn_layer(i) and self.mla is not None:
+                p += self.mla_params()
+            elif self.is_attn_layer(i):
                 p += d * (self.n_heads * h) + 2 * d * (self.n_kv_heads * h)
                 p += (self.n_heads * h) * d
             elif self.ssm is not None:           # mamba2 mixer
@@ -144,7 +201,9 @@ class ModelConfig:
             if self.is_moe_layer(i):
                 m = self.moe
                 p += d * m.n_experts                                   # router
-                p += m.n_experts * n_mats * d * m.d_ff_expert
+                if m.router == "sigmoid":
+                    p += m.n_experts                                   # selection bias
+                p += m.n_held * n_mats * d * m.d_ff_expert
                 if m.n_shared_experts:
                     p += n_mats * d * m.d_ff_shared
             elif self.d_ff > 0:
@@ -157,14 +216,32 @@ class ModelConfig:
         p += d                                    # final norm
         return p
 
+    def mla_params(self) -> int:
+        """One latent-attention layer: q down, its norm, q up, the joint kv
+        down (latent and rope key), its norm, kv up, the output."""
+        a, d, h = self.mla, self.d_model, self.n_heads
+        return (d * a.q_lora_rank + a.q_lora_rank + a.q_lora_rank * h * a.qk_head_dim
+                + d * (a.kv_lora_rank + a.qk_rope_head_dim) + a.kv_lora_rank
+                + a.kv_lora_rank * h * (a.qk_nope_head_dim + a.v_head_dim)
+                + h * a.v_head_dim * d)
+
     def n_active_params(self) -> int:
-        """Params touched per token (MoE: shared + top_k experts only)."""
+        """Params touched per token (MoE: shared + top_k experts only).
+        The reference's count, kept for its families, rebuilds a MoE layer
+        with the dense MLP where ``d_ff > 0`` (jamba) and adds the router,
+        the top-k and the shared experts; a sigmoid-routed model (its dense
+        width belongs to its leading dense layers) swaps each MoE layer's
+        held experts for its top-k."""
         if self.moe is None:
             return self.n_params()
         m = self.moe
+        n_mats = 3 if self.mlp_gated else 2
+        if m.router == "sigmoid":
+            n_moe = sum(self.is_moe_layer(i) for i in range(self.n_layers))
+            return self.n_params() + n_moe * (m.top_k - m.n_held) * n_mats * self.d_model \
+                * m.d_ff_expert
         dense = dataclasses.replace(self, moe=None)
         p = dense.n_params()
-        n_mats = 3 if self.mlp_gated else 2
         for i in range(self.n_layers):
             if self.is_moe_layer(i):
                 p += self.d_model * m.n_experts                  # router

@@ -16,8 +16,10 @@
 // the card's ridge about 295); above S of about 1200 the tensor cores' rate
 // (whisper's non-causal encoder at S 1500: S / 2 FLOPs a byte).  A few
 // queries over many keys (whisper's cross-attention prefill, Sq 32 over Sk
-// 1500) read K and V once a query tile, and their bytes bound it.  Two
-// kernels, chosen by dtype:
+// 1500) read K and V once a query tile, and their bytes bound it.  Values
+// may be narrower than queries and keys (HDV < HD): latent attention's
+// prefill (MLA) attends at HD 192 (128 + 64 RoPE dims) over V of 128.  Two
+// kernels, chosen by dtype, each templated on (HD, HDV):
 //
 // * bf16 (the serving path), flash_tc_kernel: FlashAttention-2's design.
 //   A block owns 128 query rows and eight warps, each warp 16 rows.  Both
@@ -34,7 +36,8 @@
 //   under the products of tile t.  Each K/V tile serves 128 queries, which
 //   halves the K/V traffic of 64-row tiles; about 102 KB of shared memory
 //   a block at hd 128 and 78 KB at hd 96, and at most 128 registers a
-//   thread, so two blocks (16 warps) share an SM.  A warp skips a tile
+//   thread, so two blocks (16 warps) share an SM.  At (192, 128) a block
+//   takes 134 KB, so one block a SM, with up to 255 registers a thread.  A warp skips a tile
 //   that hides every key from its rows; the element mask is applied only
 //   on a tile that crosses the diagonal, the window's edge or the end of
 //   the sequence.  Query tiles are issued longest first.
@@ -87,25 +90,26 @@ constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
 
-template <int HD>
+template <int HD, int HDV>
 constexpr int smem_floats() {
-  return BQ * (HD + 1) + 2 * BK * (HD + 1) + BQ * (BK + 1);
+  return BQ * (HD + 1) + BK * (HD + 1) + BK * (HDV + 1) + BQ * (BK + 1);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ o, int Sq, int Sk, int H, int KV, float scale, int causal,
              int window) {
   using namespace repro;
   constexpr int LD = HD + 1;   // padded rows: the 16 lanes of a half warp hit 16 banks
+  constexpr int LDV = HDV + 1;
   constexpr int LP = BK + 1;
-  constexpr int DPT = HD / 16;
+  constexpr int DPT = HDV / 16;
   extern __shared__ float smem[];
   float* sq = smem;            // BQ x LD
   float* sk = sq + BQ * LD;    // BK x LD
-  float* sv = sk + BK * LD;    // BK x LD
-  float* sp = sv + BK * LD;    // BQ x LP, probabilities of this tile
+  float* sv = sk + BK * LD;    // BK x LDV
+  float* sp = sv + BK * LDV;   // BQ x LP, probabilities of this tile
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -115,12 +119,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int r0 = (tid / 16) * 4;
   const int ln = tid % 16;
 
-  const int64_t q_stride = (int64_t)H * HD;     // one sequence position of q / o
-  const int64_t kv_stride = (int64_t)KV * HD;   // one sequence position of k / v
+  const int64_t q_stride = (int64_t)H * HD;     // one sequence position of q
+  const int64_t kv_stride = (int64_t)KV * HD;   // one sequence position of k
+  const int64_t v_stride = (int64_t)KV * HDV;   // one sequence position of v
+  const int64_t o_stride = (int64_t)H * HDV;    // one sequence position of o
   const T* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * HD;
   const T* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)kvh * HD;
-  const T* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)kvh * HD;
-  T* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * HD;
+  const T* vb = v + (int64_t)b * Sk * v_stride + (int64_t)kvh * HDV;
+  T* ob = o + (int64_t)b * Sq * o_stride + (int64_t)h * HDV;
 
   for (int e = tid; e < BQ * HD; e += NT) {
     const int r = e / HD, d = e % HD;
@@ -142,11 +148,22 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile's K/V are no longer read
-    for (int e = tid; e < BK * HD; e += NT) {
-      const int r = e / HD, d = e % HD;
-      const bool in = k0 + r < Sk;
-      sk[r * LD + d] = in ? to_float(kb[(k0 + r) * kv_stride + d]) : 0.f;
-      sv[r * LD + d] = in ? to_float(vb[(k0 + r) * kv_stride + d]) : 0.f;
+    if constexpr (HD == HDV) {
+      for (int e = tid; e < BK * HD; e += NT) {
+        const int r = e / HD, d = e % HD;
+        const bool in = k0 + r < Sk;
+        sk[r * LD + d] = in ? to_float(kb[(k0 + r) * kv_stride + d]) : 0.f;
+        sv[r * LD + d] = in ? to_float(vb[(k0 + r) * kv_stride + d]) : 0.f;
+      }
+    } else {
+      for (int e = tid; e < BK * HD; e += NT) {
+        const int r = e / HD, d = e % HD;
+        sk[r * LD + d] = k0 + r < Sk ? to_float(kb[(k0 + r) * kv_stride + d]) : 0.f;
+      }
+      for (int e = tid; e < BK * HDV; e += NT) {
+        const int r = e / HDV, d = e % HDV;
+        sv[r * LDV + d] = k0 + r < Sk ? to_float(vb[(k0 + r) * v_stride + d]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -211,7 +228,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int c = 0; c < BK; ++c) {
       float va[DPT];
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) va[j] = sv[c * LD + ln + 16 * j];
+      for (int j = 0; j < DPT; ++j) va[j] = sv[c * LDV + ln + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = sp[(r0 + i) * LP + c];
@@ -227,7 +244,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     if (qi >= Sq) continue;
     const float den = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) ob[qi * q_stride + ln + 16 * j] = from_float<T>(acc[i][j] / den);
+    for (int j = 0; j < DPT; ++j) ob[qi * o_stride + ln + 16 * j] = from_float<T>(acc[i][j] / den);
   }
 }
 
@@ -239,9 +256,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 constexpr int TC_BQ = 128;
 constexpr int TC_NT = 256;
 
-template <int HD>
-constexpr int tc_smem_bytes() {   // Q tile + a two-stage ring of K and V tiles
-  return (TC_BQ + 4 * BK) * (HD + 8) * (int)sizeof(__nv_bfloat16);
+template <int HD, int HDV>
+__host__ __device__ constexpr int tc_smem_bytes() {   // Q tile + two-stage rings of K and V
+  return ((TC_BQ + 2 * BK) * (HD + 8) + 2 * BK * (HDV + 8)) * (int)sizeof(__nv_bfloat16);
+}
+
+// Two blocks a SM where their shared memory fits (227 KB a SM), else one.
+template <int HD, int HDV>
+__host__ __device__ constexpr int tc_min_blocks() {
+  return 2 * tc_smem_bytes<HD, HDV>() <= 227 * 1024 ? 2 : 1;
 }
 
 // Copy ROWS rows of HD bf16 (row stride `stride` elements in device memory)
@@ -259,19 +282,21 @@ __device__ __forceinline__ void tc_load_rows(__nv_bfloat16* dst, const __nv_bflo
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(TC_NT, 2)
+template <int HD, int HDV>
+__global__ void __launch_bounds__(TC_NT, tc_min_blocks<HD, HDV>())
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq,
                 int Sk, int H, int KV, float scale_log2, int causal, int window) {
   using namespace repro;
-  constexpr int LD = HD + 8;   // 16-byte pad: the 8 rows of an ldmatrix tile hit 8 bank groups
-  constexpr int KS = HD / 16;  // k-steps of Q K^T; also 16-wide column pairs of P V
-  constexpr int DT = HD / 8;   // 8-wide output column tiles
+  constexpr int LD = HD + 8;    // 16-byte pad: the 8 rows of an ldmatrix tile hit 8 bank groups
+  constexpr int LDV = HDV + 8;  // (at 192 + 8, rows 25 pieces apart: 8 groups too)
+  constexpr int KS = HD / 16;   // k-steps of Q K^T
+  constexpr int VS = HDV / 16;  // 16-wide column pairs of P V
+  constexpr int DT = HDV / 8;   // 8-wide output column tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sk = sq + TC_BQ * LD;    // two stages of BK x LD
-  __nv_bfloat16* sv = sk + 2 * BK * LD;   // two stages of BK x LD
+  __nv_bfloat16* sv = sk + 2 * BK * LD;   // two stages of BK x LDV
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_BQ;   // the longest causal tiles first
   const int h = blockIdx.y;
@@ -282,10 +307,12 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
   const int64_t q_stride = (int64_t)H * HD;
   const int64_t kv_stride = (int64_t)KV * HD;
+  const int64_t v_stride = (int64_t)KV * HDV;
+  const int64_t o_stride = (int64_t)H * HDV;
   const __nv_bfloat16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * HD;
   const __nv_bfloat16* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)kvh * HD;
-  const __nv_bfloat16* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)kvh * HD;
-  __nv_bfloat16* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * HD;
+  const __nv_bfloat16* vb = v + (int64_t)b * Sk * v_stride + (int64_t)kvh * HDV;
+  __nv_bfloat16* ob = o + (int64_t)b * Sq * o_stride + (int64_t)h * HDV;
 
   int k_begin, k_end;
   const bool skip_before_window =
@@ -294,7 +321,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
   tc_load_rows<HD, TC_BQ>(sq, qb, q_stride, q0, Sq);
   tc_load_rows<HD, BK>(sk, kb, kv_stride, t_begin * BK, Sk);
-  tc_load_rows<HD, BK>(sv, vb, kv_stride, t_begin * BK, Sk);
+  tc_load_rows<HDV, BK>(sv, vb, v_stride, t_begin * BK, Sk);
   cp_async_commit();
 
   const int qw = q0 + warp * 16;             // the warp's first query row
@@ -308,7 +335,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     const int stage = (it - t_begin) & 1;
     if (it + 1 < t_end) {   // the next tile streams in under this tile's products
       tc_load_rows<HD, BK>(sk + (stage ^ 1) * BK * LD, kb, kv_stride, (it + 1) * BK, Sk);
-      tc_load_rows<HD, BK>(sv + (stage ^ 1) * BK * LD, vb, kv_stride, (it + 1) * BK, Sk);
+      tc_load_rows<HDV, BK>(sv + (stage ^ 1) * BK * LDV, vb, v_stride, (it + 1) * BK, Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -321,7 +348,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     if (qw < Sq && !(causal && (k0 > qw + 15
                                 || (skip_before_window && k0 + BK - 1 <= qw - window)))) {
       const __nv_bfloat16* ks_ = sk + stage * BK * LD;
-      const __nv_bfloat16* vs_ = sv + stage * BK * LD;
+      const __nv_bfloat16* vs_ = sv + stage * BK * LDV;
 
       // S = Q K^T: 16 rows x 64 keys a warp, as 8 accumulator tiles of 8 keys
       float s[8][4];
@@ -400,9 +427,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-        for (int dp = 0; dp < KS; ++dp) {
+        for (int dp = 0; dp < VS; ++dp) {
           uint32_t r[4];
-          ldmatrix_x4_trans(r, vs_ + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD
+          ldmatrix_x4_trans(r, vs_ + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDV
                                    + dp * 16 + (lane / 16) * 8);
           mma_bf16(acc[2 * dp], pf[kk], r[0], r[1]);
           mma_bf16(acc[2 * dp + 1], pf[kk], r[2], r[3]);
@@ -416,7 +443,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   for (int r = 0; r < 2; ++r) {
     if (qr[r] >= Sq) continue;
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-    __nv_bfloat16* orow = ob + qr[r] * q_stride + 2 * t;
+    __nv_bfloat16* orow = ob + qr[r] * o_stride + 2 * t;
 #pragma unroll
     for (int d = 0; d < DT; ++d)
       *reinterpret_cast<uint32_t*>(orow + 8 * d) =
@@ -432,29 +459,29 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                        int Sk, int H, int KV, float scale, int causal, int window,
                        cudaStream_t stream) {
-  constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
-  static cudaError_t configured = allow_smem(flash_kernel<float, HD>, bytes);
+  constexpr int bytes = smem_floats<HD, HDV>() * (int)sizeof(float);
+  static cudaError_t configured = allow_smem(flash_kernel<float, HD, HDV>, bytes);
   if (configured != cudaSuccess) return configured;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_kernel<float, HD><<<grid, NT, bytes, stream>>>(
+  flash_kernel<float, HD, HDV><<<grid, NT, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), Sq, Sk, H, KV, scale, causal, window);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                         int Sk, int H, int KV, float scale, int causal, int window,
                         cudaStream_t stream) {
-  constexpr int bytes = tc_smem_bytes<HD>();
-  static cudaError_t configured = allow_smem(flash_tc_kernel<HD>, bytes);
+  constexpr int bytes = tc_smem_bytes<HD, HDV>();
+  static cudaError_t configured = allow_smem(flash_tc_kernel<HD, HDV>, bytes);
   if (configured != cudaSuccess) return configured;
   dim3 grid((Sq + TC_BQ - 1) / TC_BQ, H, B);
-  flash_tc_kernel<HD><<<grid, TC_NT, bytes, stream>>>(
+  flash_tc_kernel<HD, HDV><<<grid, TC_NT, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV,
       scale * 1.4426950408889634f, causal, window);
@@ -462,71 +489,72 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 }
 
 // Dynamic shared memory of one block and resident blocks per SM.
-template <int HD>
+template <int HD, int HDV>
 int smem_bytes(int is_bf16) {
-  return is_bf16 ? tc_smem_bytes<HD>() : smem_floats<HD>() * (int)sizeof(float);
+  return is_bf16 ? tc_smem_bytes<HD, HDV>() : smem_floats<HD, HDV>() * (int)sizeof(float);
 }
 
-template <int HD>
+template <int HD, int HDV>
 int blocks_per_sm(int is_bf16) {
   int n = 0;
   cudaError_t err;
   if (is_bf16) {
-    err = allow_smem(flash_tc_kernel<HD>, tc_smem_bytes<HD>());
+    err = allow_smem(flash_tc_kernel<HD, HDV>, tc_smem_bytes<HD, HDV>());
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_tc_kernel<HD>, TC_NT,
-                                                          tc_smem_bytes<HD>());
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_tc_kernel<HD, HDV>, TC_NT,
+                                                          tc_smem_bytes<HD, HDV>());
   } else {
-    const int bytes = smem_floats<HD>() * (int)sizeof(float);
-    err = allow_smem(flash_kernel<float, HD>, bytes);
+    const int bytes = smem_floats<HD, HDV>() * (int)sizeof(float);
+    err = allow_smem(flash_kernel<float, HD, HDV>, bytes);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_kernel<float, HD>, NT, bytes);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_kernel<float, HD, HDV>, NT,
+                                                          bytes);
   }
   return err == cudaSuccess ? n : -(int)err;
 }
 
-#define REPRO_FLASH_HEAD_DIMS(F, ...) \
-  case 32: return F<32>(__VA_ARGS__);  \
-  case 64: return F<64>(__VA_ARGS__);  \
-  case 96: return F<96>(__VA_ARGS__);  \
-  case 128: return F<128>(__VA_ARGS__);
+// The (HD, HDV) pairs instantiated: (hd, hd) for hd in 32, 64, 96, 128, and
+// latent attention's (192, 128).  Returns DEFAULT for any other pair.
+#define REPRO_FLASH_HEAD_DIMS(DEFAULT, F, ...)                 \
+  if (HD == HDV) {                                             \
+    switch (HD) {                                              \
+      case 32: return F<32, 32>(__VA_ARGS__);                  \
+      case 64: return F<64, 64>(__VA_ARGS__);                  \
+      case 96: return F<96, 96>(__VA_ARGS__);                  \
+      case 128: return F<128, 128>(__VA_ARGS__);               \
+      default: return DEFAULT;                                 \
+    }                                                          \
+  }                                                            \
+  if (HD == 192 && HDV == 128) return F<192, 128>(__VA_ARGS__); \
+  return DEFAULT;
 
 }  // namespace
 
-// Dynamic shared memory of one block, in bytes (0 for an unsupported HD).
-extern "C" int repro_flash_attention_smem_bytes(int HD, int is_bf16) {
-  switch (HD) {
-    REPRO_FLASH_HEAD_DIMS(smem_bytes, is_bf16)
-    default: return 0;
-  }
+// Dynamic shared memory of one block, in bytes (0 for an unsupported pair).
+extern "C" int repro_flash_attention_smem_bytes(int HD, int HDV, int is_bf16) {
+  REPRO_FLASH_HEAD_DIMS(0, smem_bytes, is_bf16)
 }
 
-// Resident blocks per SM of the kernel for (HD, dtype), from the occupancy
-// calculator; a negative value is a cudaError_t.
-extern "C" int repro_flash_attention_blocks_per_sm(int HD, int is_bf16) {
-  switch (HD) {
-    REPRO_FLASH_HEAD_DIMS(blocks_per_sm, is_bf16)
-    default: return 0;
-  }
+// Resident blocks per SM of the kernel for (HD, HDV, dtype), from the
+// occupancy calculator; a negative value is a cudaError_t.
+extern "C" int repro_flash_attention_blocks_per_sm(int HD, int HDV, int is_bf16) {
+  REPRO_FLASH_HEAD_DIMS(0, blocks_per_sm, is_bf16)
 }
 
-// q, o: (B, Sq, H, HD); k, v: (B, Sk, KV, HD); all contiguous, on the
-// current device, and (bf16) 16-byte aligned.  window <= 0 means no window.
-// bf16 goes to the tensor-core kernel, f32 to the CUDA-core kernel.  Returns
-// the launch's cudaError_t.
+// q: (B, Sq, H, HD); k: (B, Sk, KV, HD); v: (B, Sk, KV, HDV); o: (B, Sq, H,
+// HDV); all contiguous, on the current device, and (bf16) 16-byte aligned.
+// window <= 0 means no window.  bf16 goes to the tensor-core kernel, f32 to
+// the CUDA-core kernel.  Returns the launch's cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                                     int Sq, int Sk, int H, int KV, int HD, int is_bf16,
-                                     float scale, int causal, int window, void* stream) {
+                                     int Sq, int Sk, int H, int KV, int HD, int HDV,
+                                     int is_bf16, float scale, int causal, int window,
+                                     void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    switch (HD) {
-      REPRO_FLASH_HEAD_DIMS(launch_bf16, q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window, st)
-      default: return (int)cudaErrorInvalidValue;
-    }
+    REPRO_FLASH_HEAD_DIMS((int)cudaErrorInvalidValue, launch_bf16, q, k, v, o, B, Sq, Sk, H, KV,
+                          scale, causal, window, st)
   }
-  switch (HD) {
-    REPRO_FLASH_HEAD_DIMS(launch_f32, q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window, st)
-    default: return (int)cudaErrorInvalidValue;
-  }
+  REPRO_FLASH_HEAD_DIMS((int)cudaErrorInvalidValue, launch_f32, q, k, v, o, B, Sq, Sk, H, KV,
+                        scale, causal, window, st)
 }

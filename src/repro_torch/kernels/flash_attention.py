@@ -35,6 +35,12 @@ Both never write the S x S scores to device memory (online softmax in
 registers), read each K/V tile once per query tile, and skip the key tiles
 that the causal mask or the window hides entirely.
 
+Values may be narrower than queries and keys: latent attention's prefill
+(MLA, Kimi-K2) attends with q and k of head dim 192 (128 without RoPE and
+64 with it) and v of 128, at the softmax scale YaRN sets.  The kernels are
+templated on the two head dims; ``HEAD_DIM_PAIRS`` lists the pairs
+instantiated.
+
 On a CPU tensor ``flash_attention`` computes the plain version; on a CUDA
 tensor it launches the kernel or raises.
 """
@@ -50,12 +56,14 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128)
+# (head dim of q and k, head dim of v)
+HEAD_DIM_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + ((192, 128),)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(q, k, v, window):
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"want q (B,Sq,H,hd) and k, v (B,Sk,KV,hd); got "
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"want q (B,Sq,H,hd), k (B,Sk,KV,hd) and v (B,Sk,KV,hd_v); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, hd = q.shape
     kv = k.shape[2]
@@ -66,8 +74,8 @@ def _check(q, k, v, window):
         raise ValueError(f"want Sq >= 1 and Sk >= 1; got {s} and {k.shape[1]}")
     if kv == 0 or h % kv:
         raise ValueError(f"KV heads ({kv}) must divide query heads ({h})")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if (hd, v.shape[3]) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims (q/k {hd}, v {v.shape[3]}) not in {HEAD_DIM_PAIRS}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want one of {DTYPES}")
     if not (q.device == k.device == v.device):
@@ -82,7 +90,7 @@ def _check(q, k, v, window):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: Optional[int] = None):
+                          window: Optional[int] = None, scale: Optional[float] = None):
     """The kernel's function in plain PyTorch, as ``repro.kernels.ref``
     computes it: f32 scores, ``-1e30`` mask over Sq x Sk, softmax,
     probabilities cast to V's type for the PV product."""
@@ -90,7 +98,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     group = h // k.shape[2]
     k = k.repeat_interleave(group, dim=2)
     v = v.repeat_interleave(group, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / hd ** 0.5)
+    scale = 1.0 / hd ** 0.5 if scale is None else scale
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         qp = torch.arange(sq, device=q.device)[:, None]
         kp = torch.arange(k.shape[1], device=q.device)[None, :]
@@ -106,35 +115,38 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 def _function():
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None):
-    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with KV | H, Sq >= 1 and
-    Sk >= 1.  Returns (B, Sq, H, hd) in q's dtype.  Causal masking counts
-    query and key positions from 0 alike and keeps ``k_pos <= q_pos``;
-    ``window`` also keeps only ``k_pos > q_pos - window``.
+                    window: Optional[int] = None, scale: Optional[float] = None):
+    """q: (B, Sq, H, hd); k: (B, Sk, KV, hd); v: (B, Sk, KV, hd_v) with
+    (hd, hd_v) in ``HEAD_DIM_PAIRS``, KV | H, Sq >= 1 and Sk >= 1.  Returns
+    (B, Sq, H, hd_v) in q's dtype.  The scores are scaled by ``scale``, by
+    default 1 / sqrt(hd).  Causal masking counts query and key positions
+    from 0 alike and keeps ``k_pos <= q_pos``; ``window`` also keeps only
+    ``k_pos > q_pos - window``.
 
     A CUDA tensor launches the tensor-core kernel for bf16 and the
     CUDA-core kernel for f32 (see the module's docstring), or raises."""
     _check(q, k, v, window)
     _build.refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA, not {q.device}")
     lib, fn = _function()
     b, s, h, hd = q.shape
-    o = torch.empty_like(q)
+    hd_v = v.shape[3]
+    o = q.new_empty((b, s, h, hd_v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 b, s, k.shape[1], h, k.shape[2], hd, int(q.dtype == torch.bfloat16),
-                 1.0 / hd ** 0.5, int(causal), window or 0, stream)
+                 b, s, k.shape[1], h, k.shape[2], hd, hd_v, int(q.dtype == torch.bfloat16),
+                 1.0 / hd ** 0.5 if scale is None else scale, int(causal), window or 0, stream)
     flash_attention.launches += 1
     _build.check(lib, err, "flash_attention")
     return o

@@ -21,9 +21,9 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
                     window: Optional[int] = None, block_q: int = 128,
-                    block_k: int = 128):
+                    block_k: int = 128, scale: Optional[float] = None):
     """Signature-compatible with repro_torch.models.layers.attention."""
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, block_k: int = 128):

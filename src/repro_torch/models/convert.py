@@ -32,6 +32,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 BF16_BITS = np.dtype("V2")
 
 
+def _reference_layout(cfg: ModelConfig) -> None:
+    """The reference has no latent attention: a model with it has no
+    stacked layout to convert to or from, and no mesh rules."""
+    if cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.arch_id} has latent attention (MLA), which the "
+                                  "reference package and the mesh path do not have")
+
+
 def _tensor(a, device):
     a = np.asarray(a)
     if a.dtype == BF16_BITS:
@@ -71,6 +79,7 @@ def params_from_jax(params_np, cfg: ModelConfig, *, device: D.DeviceLike = None)
 
 
 def _from_jax(tree, cfg: ModelConfig, of_block, one):
+    _reference_layout(cfg)
     out = {"embed": one(tree["embed"]),
            "stack": _unstack(tree["stack"], ST.decoder_plan(cfg), of_block, one),
            "final_norm": one(tree["final_norm"])}
@@ -99,6 +108,7 @@ def cache_specs_from_jax(specs, cfg: ModelConfig):
     caches, a block leaf's layer entry dropped as for the parameters (the
     rules take a Mamba2 ``conv`` cache, whose path ends in "v", for K/V and
     may put the batch's axis on its layer axis: ROADMAP P10)."""
+    _reference_layout(cfg)
     return _unstack(specs, ST.decoder_plan(cfg), _layer_spec, lambda s: s)
 
 
@@ -123,6 +133,7 @@ def _restack(layers, pl: ST.StackPlan, one, stacked):
 
 
 def _to_jax(params, cfg: ModelConfig, one, stacked):
+    _reference_layout(cfg)
     out = {"embed": one(params["embed"]),
            "stack": _restack(params["stack"], ST.decoder_plan(cfg), one, stacked),
            "final_norm": one(params["final_norm"])}
@@ -163,4 +174,5 @@ def cache_shapes(caches, cfg: ModelConfig):
     """The port's decode caches (one dictionary per decoder layer) as meta
     tensors in the reference's stacked cache layout: ``{"blocks": (...),
     "rem": (...)}`` with a leading ``n_rep`` axis on every block leaf."""
+    _reference_layout(cfg)
     return _restack(caches, ST.decoder_plan(cfg), _meta, _meta_stacked)

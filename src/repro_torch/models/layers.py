@@ -17,6 +17,7 @@ angles, tanh-approximated GELU (``jax.nn.gelu``'s default) and the finite
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -52,9 +53,35 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature factor (DeepSeek-V3's ``yarn_get_mscale``)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_freqs(head_dim: int, theta: float, yarn, device=None):
+    """DeepSeek-V3's YaRN inverse frequencies: the rotation pairs below the
+    correction range keep ``theta ** (-2i / hd)``, those above it are
+    divided by ``factor``, with a linear ramp between.  The range's ends are
+    the pair indices at which a rotation turns ``beta_fast`` (floored) and
+    ``beta_slow`` (ceiled) times over ``original_max_position_embeddings``."""
+    def dim_at(rotations):
+        return (head_dim * math.log(yarn.original_max_position_embeddings
+                                    / (rotations * 2 * math.pi)) / (2 * math.log(theta)))
+    low = max(math.floor(dim_at(yarn.beta_fast)), 0)
+    high = min(math.ceil(dim_at(yarn.beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    base = rope_freqs(head_dim, theta, device)
+    return base / yarn.factor * ramp + base * (1 - ramp)
+
+
+def apply_rope(x, positions, theta: float, freqs=None):
+    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S).
+    ``freqs`` (head_dim / 2,) f32 replaces ``rope_freqs(head_dim, theta)``."""
+    if freqs is None:
+        freqs = rope_freqs(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs                 # (..., S, hd/2)
     sin = torch.sin(angles)[..., None, :]                          # (..., S, 1, hd/2)
     cos = torch.cos(angles)[..., None, :]
@@ -125,12 +152,13 @@ def _mask_bias(q_pos, k_pos, window: Optional[int]):
 
 
 def attention_naive(q, k, v, q_pos, k_pos, window: Optional[int] = None,
-                    causal: bool = True):
-    """q: (B, Sq, H, hd); k, v: (B, Sk, Kv, hd). Returns (B, Sq, H, hd)."""
+                    causal: bool = True, scale: Optional[float] = None):
+    """q: (B, Sq, H, hd); k: (B, Sk, Kv, hd); v: (B, Sk, Kv, hd_v). Returns
+    (B, Sq, H, hd_v).  ``scale`` defaults to 1 / sqrt(hd)."""
     h = q.shape[-2]
     k = _repeat_kv(k, h)
     v = _repeat_kv(v, h)
-    scale = 1.0 / q.shape[-1] ** 0.5
+    scale = 1.0 / q.shape[-1] ** 0.5 if scale is None else scale
     scores = einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         scores = scores + _mask_bias(q_pos, k_pos, window)[:, None]
@@ -139,7 +167,8 @@ def attention_naive(q, k, v, q_pos, k_pos, window: Optional[int] = None,
 
 
 def attention_chunked(q, k, v, q_pos, k_pos, window: Optional[int] = None,
-                      causal: bool = True, query_chunk: int = DEFAULT_QUERY_CHUNK):
+                      causal: bool = True, query_chunk: int = DEFAULT_QUERY_CHUNK,
+                      scale: Optional[float] = None):
     """The reference's ``attention_chunked``: the queries in chunks of
     ``query_chunk``, each chunk's scores and softmax over the keys it can
     see.  For a causal window that is a KV slab of
@@ -149,10 +178,10 @@ def attention_chunked(q, k, v, q_pos, k_pos, window: Optional[int] = None,
     b, sq, hq, hd = q.shape
     sk = k.shape[1]
     if sq % query_chunk != 0 or sq == query_chunk:
-        return attention_naive(q, k, v, q_pos, k_pos, window, causal)
+        return attention_naive(q, k, v, q_pos, k_pos, window, causal, scale)
     k = _repeat_kv(k, hq)
     v = _repeat_kv(v, hq)
-    scale = 1.0 / hd ** 0.5
+    scale = 1.0 / hd ** 0.5 if scale is None else scale
     slab = sk
     if window is not None and causal:
         slab = min(sk, ((window + query_chunk + 127) // 128) * 128)
@@ -196,13 +225,14 @@ def attention_decode(q, k_cache, v_cache, cache_len, seq_sharded: bool = False):
     return einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
-def attention(q, k, v, q_pos, k_pos, window=None, causal=True, impl="kernel"):
+def attention(q, k, v, q_pos, k_pos, window=None, causal=True, impl="kernel", scale=None):
     if impl == "naive":
-        return attention_naive(q, k, v, q_pos, k_pos, window, causal)
+        return attention_naive(q, k, v, q_pos, k_pos, window, causal, scale)
     if impl == "chunked":
-        return attention_chunked(q, k, v, q_pos, k_pos, window, causal)
+        return attention_chunked(q, k, v, q_pos, k_pos, window, causal, scale=scale)
     if impl == "kernel":
-        return ops.flash_attention(q, k, v, q_pos, k_pos, window=window, causal=causal)
+        return ops.flash_attention(q, k, v, q_pos, k_pos, window=window, causal=causal,
+                                   scale=scale)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

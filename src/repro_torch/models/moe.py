@@ -19,6 +19,22 @@ towards the lower expert index as ``jax.lax.top_k`` does.  No kernel: the
 expert products are plain batched matmuls, as XLA's are in the reference.
 While ``tracing.recording()`` is open, routing, dispatch, the experts and
 the combine are spans, and the pairs routed and dropped are counted.
+
+A layer whose ``MoEConfig.router`` is ``"sigmoid"`` (DeepSeek-V3's
+``noaux_tc``, Kimi-K2) routes otherwise: f32 sigmoid scores over all
+``n_experts``, the top-k chosen by score plus the layer's f32 selection
+bias, weighted by the chosen unbiased scores over their sum (+1e-20) times
+``routed_scale``; no capacity, so nothing is dropped and a token's output
+does not depend on the rest of the batch; no balancing loss.  Such a layer
+holds the experts of one expert-parallel rank (``MoEConfig.first_held``
+on, ``n_held`` of them) and computes only their part of the result, the
+pairs routed to them; its shared expert is added in full.  Prefill sorts
+the held pairs by expert and runs each expert over its own tokens (the
+per-expert counts are read on the host); a decode step, which a CUDA graph
+captures and which may not wait on the host, runs every held expert over
+the step's few rows and weighs the pairs not routed to it by zero
+(``static``).  Besides ``moe.pairs`` (every routed pair, on the host) it
+counts ``moe.held``, the pairs routed to a held expert, on the device.
 """
 from __future__ import annotations
 
@@ -39,13 +55,13 @@ GROUP_SIZE = 4096
 def init_moe(gen: torch.Generator, d_model: int, mcfg: MoEConfig, gated: bool, dtype):
     """Random parameters with the reference's distributions, drawn in its
     order from ``gen`` on ``gen.device``."""
-    p = {
-        "router": L.init_dense(gen, d_model, mcfg.n_experts, torch.float32),
-        "w_in": _init_experts(gen, mcfg.n_experts, d_model, mcfg.d_ff_expert, dtype),
-        "w_out": _init_experts(gen, mcfg.n_experts, mcfg.d_ff_expert, d_model, dtype),
-    }
+    p = {"router": L.init_dense(gen, d_model, mcfg.n_experts, torch.float32)}
+    if mcfg.router == "sigmoid":
+        p["bias"] = torch.zeros((mcfg.n_experts,), dtype=torch.float32, device=gen.device)
+    p["w_in"] = _init_experts(gen, mcfg.n_held, d_model, mcfg.d_ff_expert, dtype)
+    p["w_out"] = _init_experts(gen, mcfg.n_held, mcfg.d_ff_expert, d_model, dtype)
     if gated:
-        p["w_gate"] = _init_experts(gen, mcfg.n_experts, d_model, mcfg.d_ff_expert, dtype)
+        p["w_gate"] = _init_experts(gen, mcfg.n_held, d_model, mcfg.d_ff_expert, dtype)
     if mcfg.n_shared_experts:
         p["shared"] = L.init_mlp(gen, d_model, mcfg.d_ff_shared, gated, dtype)
     return p
@@ -103,8 +119,16 @@ def _expert_ffn(params, xd):
 
 
 def moe_apply(params, x, mcfg: MoEConfig, impl: str = "einsum",
-              group_size: int = GROUP_SIZE):
-    """x: (B, S, d). Returns (y (B, S, d), aux_loss 0-d f32)."""
+              group_size: int = GROUP_SIZE, static: bool = False):
+    """x: (B, S, d). Returns (y (B, S, d), aux_loss 0-d f32, None for a
+    sigmoid-routed layer).  ``impl`` and ``group_size`` apply to softmax
+    routing, ``static`` to sigmoid routing (see the module's docstring)."""
+    if mcfg.router == "sigmoid":
+        return _moe_held(params, x, mcfg, static), None
+    if mcfg.router != "softmax":
+        raise ValueError(f"unknown router {mcfg.router!r}")
+    if mcfg.ep_size != 1:
+        raise ValueError("softmax routing holds every expert (ep_size 1)")
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
@@ -214,3 +238,84 @@ def _dispatch_gather(params, xf, top_w, top_i, mcfg, cap):
         yk = ye.reshape(e * cap, d)[gidx].reshape(t, k, d)
         w = torch.where(keep, top_w, 0.0).to(xf.dtype)
         return torch.einsum("tkd,tk->td", yk, w)
+
+
+# ---------------------------------------------------------------------------
+# sigmoid routing (noaux_tc), dropless, over the held experts
+# ---------------------------------------------------------------------------
+def _route_sigmoid(params, xf, mcfg: MoEConfig):
+    """xf: (T, d) -> (top_w (T, k) f32, top_i (T, k)): the top-k by sigmoid
+    score plus the selection bias (equal values in index order), weighted
+    by their unbiased scores, normalised, times ``routed_scale``."""
+    scores = torch.sigmoid(xf.float() @ params["router"])          # (T, E)
+    _, top_i = _top_k(scores + params["bias"], mcfg.top_k)
+    top_w = scores.gather(-1, top_i)
+    top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-20) * mcfg.routed_scale
+    return top_w, top_i
+
+
+def _one_expert(params, j: int, xe):
+    """Held expert j over its tokens xe (n, d)."""
+    h = xe @ params["w_in"][j]
+    if "w_gate" in params:
+        h = F.silu(xe @ params["w_gate"][j]) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return h @ params["w_out"][j]
+
+
+def _moe_held(params, x, mcfg: MoEConfig, static: bool):
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    with tracing.span("moe.route"):
+        top_w, top_i = _route_sigmoid(params, xf, mcfg)
+    with tracing.span("moe.dispatch"):
+        loc = top_i - mcfg.first_held                               # (T, k) held index
+        held = (loc >= 0) & (loc < mcfg.n_held)
+        tracing.count("moe.pairs", top_i.numel())
+        tracing.count_device("moe.held", held, at_least=1)
+    y = (_held_static if static else _held_sorted)(params, xf, top_w, loc, held)
+    with tracing.span("moe.combine"):
+        y = _add_shared(params, y.to(x.dtype), xf)
+    return y.reshape(b, s, d)
+
+
+def _held_static(params, xf, top_w, loc, held):
+    """Every held expert over every row, each row's output weighed by the
+    pairs routed to it (zero for the rest): static shapes, no host wait.
+    Returns (T, d) f32."""
+    t, d = xf.shape
+    nh = params["w_in"].shape[0]
+    with tracing.span("moe.dispatch"):
+        w = torch.zeros((t, nh), dtype=torch.float32, device=xf.device).scatter_add_(
+            1, loc.clamp(0, nh - 1), torch.where(held, top_w, 0.0))
+    with tracing.span("moe.experts"):
+        ye = _expert_ffn(params, xf.expand(nh, t, d))               # (nh, T, d)
+    with tracing.span("moe.combine"):
+        return torch.einsum("etd,te->td", ye.float(), w)
+
+
+def _held_sorted(params, xf, top_w, loc, held):
+    """The held pairs sorted by expert, each expert over its own tokens (the
+    per-expert counts read on the host).  Returns (T, d) f32."""
+    t, d = xf.shape
+    k = loc.shape[1]
+    with tracing.span("moe.dispatch"):
+        pair = held.reshape(-1).nonzero()[:, 0]                     # (P,), token-major
+        e = loc.reshape(-1)[pair]
+        order = torch.argsort(e, stable=True)
+        pair = pair[order]
+        counts = torch.bincount(e, minlength=params["w_in"].shape[0]).tolist()
+        tok = pair // k
+        xs = xf[tok]
+    with tracing.span("moe.experts"):
+        outs, a = [], 0
+        for j, n in enumerate(counts):
+            if n:
+                outs.append(_one_expert(params, j, xs[a:a + n]))
+                a += n
+        ye = torch.cat(outs) if outs else xs
+    with tracing.span("moe.combine"):
+        wts = top_w.reshape(-1)[pair]
+        return torch.zeros((t, d), dtype=torch.float32, device=xf.device).index_add_(
+            0, tok, ye.float() * wts[:, None])

@@ -11,6 +11,9 @@ SSD mixer in the attention's place (with the MLP only where ``d_ff > 0``),
 the hybrid (jamba) that interleaves the two with MoE on every other layer,
 and the enc-dec decoder (whisper), whose layers put rms_norm -> cross-
 attention over the encoder's output between the self-attention and the MLP.
+A model with ``cfg.mla`` (Kimi-K2) puts latent attention (``mla.py``) in the
+attention's place and caches its latent ``{"c_kv", "k_pe"}``; its first
+``cfg.first_k_dense`` layers keep the dense MLP before its MoE layers.
 A MoE layer adds its balancing loss to the stack's ``aux``.
 """
 from __future__ import annotations
@@ -29,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.api import batchwise, constrain, mesh_axis_size
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MO
 from repro_torch.models import ssm as S
 
@@ -62,6 +66,8 @@ def plan(cfg: ModelConfig, *, cross: bool = False,
         period = math.lcm(period, cfg.attn_every)
     if cfg.moe is not None:
         period = math.lcm(period, cfg.moe.every)
+    if cfg.first_k_dense:           # leading dense layers: one pattern of every layer
+        period = n
     period = min(period, n)
     n_rep = n // period
     pattern = tuple(_spec(cfg, i, cross) for i in range(period))
@@ -101,7 +107,9 @@ def _window(cfg: ModelConfig, spec: LayerSpec) -> Optional[int]:
 def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
     d, dt = cfg.d_model, cfg.dtype
     p = {"ln1": torch.zeros((d,), dtype=dt, device=gen.device)}
-    if spec.is_attn:
+    if spec.is_attn and cfg.mla is not None:
+        p["attn"] = MLA.init_mla(gen, cfg)
+    elif spec.is_attn:
         p["attn"] = L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                      cfg.head_dim_, dt)
     else:
@@ -135,6 +143,8 @@ def _layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, capacity: int,
                                     device=device),
                 "state": torch.zeros((batch, s.n_heads(cfg.d_model), s.head_dim,
                                       s.d_state), dtype=torch.float32, device=device)}
+    if cfg.mla is not None:
+        return MLA.init_cache(cfg, batch, capacity, device)
     cap = capacity
     if cfg.sliding_window is not None and not spec.is_global:
         cap = min(cfg.sliding_window, capacity)
@@ -181,6 +191,12 @@ def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
                 a, st = S.mamba_forward(params["ssm"], h, cfg.d_model, cfg.ssm, impl=impl)
                 if mode == "prefill":
                     new_cache = st
+        elif cfg.mla is not None:
+            if mode == "decode":
+                a, new_cache = MLA.decode(params["attn"], h, cache, at, cfg)
+            else:
+                a, new_cache = MLA.prefill(params["attn"], h, positions, cfg, impl=impl,
+                                           capacity=capacity if mode == "prefill" else None)
         elif mode == "decode":
             a, new_cache = _attn_decode(params["attn"], cfg, h, cache, at, impl)
         else:
@@ -202,7 +218,8 @@ def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
     if "moe" in params:
         with tracing.span("moe"):
             h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
-            mo, aux = MO.moe_apply(params["moe"], h, cfg.moe, impl=moe_impl)
+            mo, aux = MO.moe_apply(params["moe"], h, cfg.moe, impl=moe_impl,
+                                   static=mode == "decode")
             x = x + mo
     elif "mlp" in params:
         with tracing.span("mlp"):

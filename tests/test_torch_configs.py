@@ -13,9 +13,25 @@ from repro_torch import configs as TC
 DTYPE_MAP = {jnp.bfloat16: torch.bfloat16, "float32": torch.float32}
 
 
+def _port_only_defaults(cls, ref_cls):
+    """The port's fields that the reference's dataclass lacks, with their
+    defaults."""
+    ref = {f.name for f in dataclasses.fields(ref_cls)}
+    return {f.name: f.default for f in dataclasses.fields(cls) if f.name not in ref}
+
+
 def _same(jcfg, tcfg):
+    """Every field the reference has is equal; every port-only field (latent
+    attention, YaRN, leading dense layers, sigmoid routing, expert
+    parallelism) holds its default, under which the reference's families
+    behave, initialise and count exactly as before."""
     jd, td = dataclasses.asdict(jcfg), dataclasses.asdict(tcfg)
     assert DTYPE_MAP[jd.pop("dtype")] == td.pop("dtype")
+    for key, default in _port_only_defaults(type(tcfg), type(jcfg)).items():
+        assert td.pop(key) == default, key
+    if jcfg.moe is not None:
+        for key, default in _port_only_defaults(type(tcfg.moe), type(jcfg.moe)).items():
+            assert td["moe"].pop(key) == default, key
     assert td == jd
     assert tcfg.n_params() == jcfg.n_params()
     assert tcfg.n_active_params() == jcfg.n_active_params()

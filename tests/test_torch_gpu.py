@@ -1,8 +1,10 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version
-(K1 with Sq != Sk too), the model and engine paths through the kernels
-against the naive path (reduced whisper's encoder-decoder included), the
-MoE layer's two dispatch modes against each other at full width, and the
-engine's CUDA graphs of the decode step against the eager step.
+(K1 with Sq != Sk too, and at latent attention's head dims 192 / 128), the
+model and engine paths through the kernels against the naive path (reduced
+whisper's encoder-decoder included), the MoE layer's two dispatch modes
+against each other at full width, and the engine's CUDA graphs of the
+decode step against the eager step (Kimi-K2's latent attention and held
+experts among them).
 
 Every test is marked ``gpu`` and skips inside the test where there is no
 CUDA device.  The file imports neither jax nor the reference package, so it
@@ -94,6 +96,37 @@ def test_flash_kernel_matches_plain(b, s, h, kv, hd, window, causal, dtype):
     assert K1.flash_attention.launches == n + 1
     assert got.dtype == dtype and got.shape == q.shape
     _close(got, K1.flash_attention_plain(q, k, v, causal=causal, window=window), dtype)
+
+
+# latent attention's prefill (MLA): q and k of 192, v of 128, YaRN's scale;
+# (b, s, h, kv, window, causal, dtype).  Kimi-K2's batch (B 4, S 8192, 64
+# heads) is compared on its first row, eight heads at a time (the plain
+# version's scores of all 64 heads would take 17 GB)
+MLA_SCALE = 192 ** -0.5 * (0.1 * np.log(32) + 1) ** 2
+FLASH_MLA = [(4, 8192, 64, 64, None, True, torch.bfloat16),
+             (2, 300, 4, 4, None, True, torch.bfloat16),
+             (1, 200, 8, 2, 70, True, torch.bfloat16),
+             (2, 64, 4, 4, None, False, torch.bfloat16),
+             (2, 130, 4, 4, None, True, torch.float32),
+             (1, 70, 8, 2, 16, True, torch.float32)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,window,causal,dtype", FLASH_MLA)
+def test_flash_kernel_at_mla_head_dims_matches_plain(b, s, h, kv, window, causal, dtype):
+    _need_cuda()
+    q = _randn(0, (b, s, h, 192), dtype)
+    k, v = _randn(1, (b, s, kv, 192), dtype), _randn(2, (b, s, kv, 128), dtype)
+    got = K1.flash_attention(q, k, v, causal=causal, window=window, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, s, h, 128)
+    rows, step = (slice(0, 1), 8) if s * h > 100_000 else (slice(0, b), h)
+    for h0 in range(0, h, step):
+        heads = slice(h0, h0 + step)
+        kv_heads = heads if kv == h else slice(0, kv)
+        want = K1.flash_attention_plain(
+            q[rows, :, heads].contiguous(), k[rows, :, kv_heads].contiguous(),
+            v[rows, :, kv_heads].contiguous(), causal=causal, window=window, scale=MLA_SCALE)
+        _close(got[rows, :, heads], want, dtype)
 
 
 # Sq != Sk: (b, sq, sk, h, kv, hd, window, causal, dtype).  whisper's
@@ -372,7 +405,7 @@ def _eager_tokens(srv, prompt):
     return torch.cat(out, dim=1).int().cpu().numpy()
 
 
-@pytest.mark.parametrize("arch", ["yi-34b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["yi-34b", "jamba-v0.1-52b", "kimi-k2-instruct"])
 def test_decode_graphs_serve_the_eager_loop_s_tokens(arch):
     """Reduced, bf16, two variants in one server: batches of 1 to 8 (every
     size the benchmark's cells form), back to back with new prompts (the
@@ -467,6 +500,31 @@ def test_a_graph_replay_equals_the_eager_step_at_full_width(arch, layers, b, s):
     got, want, launched = _graph_against_eager(cfg, b, s, 3)
     assert torch.equal(got, want)
     assert launched == 3 * sum(cfg.is_attn_layer(i) for i in range(layers))
+
+
+def test_a_latent_attention_graph_replay_equals_the_eager_step_at_full_width(monkeypatch):
+    """Kimi-K2-Instruct's dense layer 0 and first MoE layer at published
+    widths (MLA of 64 heads at ranks 1536 / 512, YaRN, the 384-wide
+    sigmoid router with experts 0-23 held, the shared expert), bf16, at
+    the Kimi cell's batch of 4: each replay's logits equal the eager
+    step's bit for bit, with the selection bias drawn so that it matters;
+    the absorbed decode reads the latent cache, so no K2 launch."""
+    _need_cuda()
+    full = configs.get_config("kimi-k2-instruct")
+    cfg = dataclasses.replace(full, n_layers=2, moe=dataclasses.replace(full.moe, ep_size=16))
+    real_init = M.init
+
+    def init(cfg, **kw):
+        params = real_init(cfg, **kw)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for lay in params["stack"]:
+            if "moe" in lay:
+                lay["moe"]["bias"].normal_(0.0, 0.1, generator=gen)
+        return params
+    monkeypatch.setattr(M, "init", init)
+    got, want, launched = _graph_against_eager(cfg, 4, 64, 3)
+    assert torch.equal(got, want)
+    assert launched == 0
 
 
 def test_full_width_layer_kernel_path_matches_naive_path():
