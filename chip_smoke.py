@@ -6,11 +6,12 @@
 Phases, each of which fails the script if it fails:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
-2. build the three CUDA libraries from src/repro_torch/kernels/csrc, all at
+2. build the four CUDA libraries from src/repro_torch/kernels/csrc, all at
    once, and print each kernel's registers and spills (ptxas), each
    library's tensor-core instructions (HMMA / HGMMA in cuobjdump -sass;
-   K1's and K3's must be nonzero), and each kernel's dynamic shared memory
-   and resident blocks per SM (the bf16 paths of K1 and K3 must reach two;
+   K1's, K3's and the MoE expert kernel's must be nonzero), and each
+   kernel's dynamic shared memory and resident blocks per SM (the bf16
+   paths of K1 and K3 and the expert kernel must reach two;
    K2's splits, ring stages and blocks at the decode shapes, which must
    fit in one wave);
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -26,7 +27,10 @@ Phases, each of which fails the script if it fails:
    attention, F.scaled_dot_product_attention (a yardstick the port never
    calls) with CUDA events, beside the card's bound, list the device
    kernels one call launches with their device time (torch.profiler), and
-   time K2 at other split counts than its wrapper's;
+   time K2 at other split counts than its wrapper's; MoE decode's expert
+   kernel (``moe_experts``) at jamba's and Kimi's decode shapes against
+   its plain version and timed beside its bound and the batched products
+   over every expert that it replaced;
 4. serve the vlm-classify pipeline at full width -- phi-3-vision-4.2b at its
    published config, then yi-34b at full width with its depth cut to 12 of
    60 layers -- with random weights from a seed, counting kernel launches
@@ -159,6 +163,7 @@ from repro_torch.core import profiler as PF  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as K2  # noqa: E402
 from repro_torch.kernels import flash_attention as K1  # noqa: E402
+from repro_torch.kernels import moe_experts as KX  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as K3  # noqa: E402
 from repro_torch.core import adapter as AD  # noqa: E402
@@ -267,6 +272,18 @@ K1_ROWS = (
 # 192^-0.5 * (0.1 ln 32 + 1)^2.  (label, B, S, H, hd, hd_v, scale)
 K1_MLA_ROW = ("kimi-k2 MLA prefill", 4, 8192, 64, 192, 128,
               192 ** -0.5 * (0.1 * math.log(32) + 1) ** 2)
+# MoE decode's expert kernel at the cells' shapes and chip_smoke's own
+# served paths': jamba-2p.chat's 16 experts
+# of 4096 x 14336 at capacity 2 (8 rows), about 9 holding a row at its
+# batches of about 6; one row (a batch of 1: 2 of 16); Kimi's 24 held
+# experts of 7168 x 2048 at its 4 rows, about 2 holding a row.  (label, E,
+# d, f, rows an expert, experts holding a row)
+# qwen2-moe's 60 experts of 2048 x 1408 at nlp-chain's decode step here
+# (B 4, top-4, capacity 1): 16 picks reach about 60 (1 - (59/60)^16) = 13.
+MOE_EXPERTS_ROWS = (("jamba decode R=2", 16, 4096, 14336, 2, 9),
+                    ("jamba decode R=1", 16, 4096, 14336, 1, 2),
+                    ("kimi-k2 decode", 24, 7168, 2048, 4, 2),
+                    ("qwen2-moe decode", 60, 2048, 1408, 1, 13))
 
 
 def log(msg: str) -> None:
@@ -435,6 +452,7 @@ def phase_build():
         log(f"sass {name}: {hmma[name][0]} HMMA, {hmma[name][1]} HGMMA instructions")
     assert hmma["flash_attention"][0] + hmma["flash_attention"][1] > 0, hmma
     assert hmma["ssd_scan"][0] + hmma["ssd_scan"][1] > 0, hmma
+    assert hmma["moe_experts"][0] + hmma["moe_experts"][1] > 0, hmma
 
     # the kernels' shared memory is dynamic, so ptxas does not report it
     k1 = _build.load("flash_attention")
@@ -477,10 +495,18 @@ def phase_build():
         log(f"ssd_scan {k3.repro_ssd_scan_kernel_name(i).decode()}: "
             f"{k3.repro_ssd_scan_smem_bytes(i)} B shared a block (every width), "
             f"{occ[('ssd_scan', i)]} blocks per SM")
+    kx = _build.load("moe_experts")
+    for fn in (kx.repro_moe_experts_smem_bytes, kx.repro_moe_experts_blocks_per_sm):
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for mode, label in enumerate(("down", "SwiGLU up", "GELU up")):
+        occ[("moe_experts", mode)] = kx.repro_moe_experts_blocks_per_sm(mode)
+        log(f"moe_experts {label}: {kx.repro_moe_experts_smem_bytes(mode)} B shared a block, "
+            f"{occ[('moe_experts', mode)]} blocks per SM")
     # the bf16 serving paths: two or more resident blocks an SM
     assert min(occ[("flash_attention", hd, hd, 1)] for hd in (96, 128)) >= 2, occ
     assert min(occ[("ssd_scan", i)]
                for i in range(1, k3.repro_ssd_scan_kernel_count())) >= 2, occ
+    assert min(occ[("moe_experts", mode)] for mode in range(3)) >= 2, occ
     # K2: every block of a decode step resident at once (one wave)
     assert max(waves.values()) <= 1, waves
     return hmma
@@ -758,6 +784,54 @@ def _k2_repeated_calls(gen):
     return {"case": "repeated and alternating calls", "max_abs_err_over_tol": err}
 
 
+def _time_moe_experts(gen):
+    """``moe_experts`` at MOE_EXPERTS_ROWS: the kernel against its plain
+    version (exact zeros on the empty experts), its time by CUDA events over
+    eight occupancies of the row's count (each a random set of experts,
+    cycled) and by device time, beside its bound (the occupied experts'
+    weights over PEAK_BYTES) and the products over every expert that the
+    layer ran before (``moe._expert_ffn``: cuBLAS's batched products)."""
+    bf, out = torch.bfloat16, {}
+    rng = np.random.default_rng(30)
+    for label, e, d, f, r, n in MOE_EXPERTS_ROWS:
+        params = {"w_in": _randn(gen, (e, d, f), bf), "w_gate": _randn(gen, (e, d, f), bf),
+                  "w_out": _randn(gen, (e, f, d), bf)}
+        for w in params.values():
+            w.mul_(w.shape[1] ** -0.5)
+        x = _randn(gen, (e, r, d), bf)
+        sets = []
+        for _ in range(8):
+            counts = torch.zeros(e, dtype=torch.int32)
+            counts[rng.permutation(e)[:n]] = 1
+            sets.append((x, counts.to(DEV)))
+        kern = lambda x, c, p=params: KX.moe_experts(  # noqa: E731
+            x, c, p["w_in"], p["w_gate"], p["w_out"])
+        plain_fn = lambda x, c, p=params: KX.moe_experts_plain(  # noqa: E731
+            x, c, p["w_in"], p["w_gate"], p["w_out"])
+        dense = lambda x, c, p=params: MO._expert_ffn(p, x)  # noqa: E731
+        got, want = kern(*sets[0]).float(), plain_fn(*sets[0]).float()
+        busy = sets[0][1] > 0
+        err = (got[busy] - want[busy]).abs().max().item()
+        assert torch.allclose(got[busy], want[busy], atol=TOL[bf], rtol=TOL[bf]), (label, err)
+        assert not got[~busy].any(), label
+        ms, plain, lib = (cuda_ms(fn, sets) for fn in (kern, plain_fn, dense))
+        dev, _ = _log_device_kernels(f"moe_experts {label}", kern, *sets[0])
+        dev_lib, _ = _log_device_kernels(f"bmm over every expert {label}", dense, *sets[0])
+        bound = n * 3 * d * f * 2 / PEAK_BYTES * 1e3
+        up, down = KX.split_plan(d, f), KX.split_plan(f, d)
+        log(f"time moe_experts {label} E={e} d={d} f={f} R={r}, {n} experts holding a row, "
+            f"splits up {up} down {down}: kernel {ms:.4f} ms (device {dev:.4f}), plain "
+            f"{plain:.4f} ms, bmm over every expert {lib:.4f} ms (device {dev_lib:.4f}), bound "
+            f"{bound:.4f} ms (bytes), {100 * bound / dev:.1f}% of it; max abs err vs plain "
+            f"{err:.3e}")
+        out[("moe_experts", label)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                          bound_ms=bound, bound_by="bytes", max_abs_err=err,
+                                          device_ms=dev, library_device_ms=dev_lib)
+        del params, sets, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_timing():
     """Kernel, plain version and SDPA at the serving path's shapes."""
     gen = torch.Generator(device=DEV).manual_seed(1)
@@ -796,6 +870,7 @@ def phase_timing():
                                               library_device_ms=dev_lib,
                                               library_backend=sdpa_backend(names))
     out[("flash_attention", K1_MLA_ROW[0])] = _time_k1_mla(gen)
+    out.update(_time_moe_experts(gen))
     for label, h, kv, hd, L, n in DECODE_SHAPES:
         q = _randn(gen, (BATCH, h, hd), bf)
         k, v = _randn(gen, (BATCH, L, kv, hd), bf), _randn(gen, (BATCH, L, kv, hd), bf)
@@ -1069,7 +1144,7 @@ def phase_serve():
     n_batches = len(prompts) - 1
     n_attn = sum(s.config.n_layers for s in servers)
     want = {"flash_attention": n_attn * n_batches, "decode_attention": n_attn * GEN * n_batches,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "moe_experts": 0}
     peak = torch.cuda.max_memory_allocated()
     launches = served_launches("vlm-classify launches",
                                lambda: [engine.serve(p) for p in prompts[1:]], want)
@@ -1083,20 +1158,44 @@ def reset_launches():
     K1.flash_attention.launches = 0
     K2.decode_attention.launches = 0
     K3.ssd_scan.launches = 0
+    KX.moe_experts.launches = 0
 
 
 def read_launches():
     return {"flash_attention": K1.flash_attention.launches,
             "decode_attention": K2.decode_attention.launches,
-            "ssd_scan": K3.ssd_scan.launches}
+            "ssd_scan": K3.ssd_scan.launches,
+            "moe_experts": KX.moe_experts.launches}
 
 
 # each kernel wrapper's device kernels, by a piece of their names: K1 and
 # K2 run one kernel a call, K3 a chain that ends in its output kernel
-# (``ssd_kernel`` alone in f32)
+# (``ssd_kernel`` alone in f32), ``moe_experts`` its up product and then
+# its down product (``moe_experts_kernel<0>``)
 PORT_KERNELS = {"flash_attention": ("::flash_kernel", "::flash_tc_kernel"),
                 "decode_attention": ("::decode_split_",),
-                "ssd_scan": ("::ssd_kernel", "::ssd_out_kernel")}
+                "ssd_scan": ("::ssd_kernel", "::ssd_out_kernel"),
+                "moe_experts": ("::moe_experts_kernel<0>",)}
+
+
+def moe_experts_calls(cfg, batch, prompt, steps):
+    """``moe_experts`` calls of one served batch of a bf16 stage on the
+    card: each MoE layer calls it where an expert gets at most ROW_LIMIT
+    rows (``moe_apply``'s routing groups times their capacity; a sigmoid
+    layer's rows), in prefill (batch x prompt tokens) and in each of the
+    ``steps`` decode steps (batch tokens)."""
+    if cfg.moe is None:
+        return 0
+    mcfg = cfg.moe
+
+    def rows(t):
+        if mcfg.router == "sigmoid":
+            return t
+        tg = min(MO.GROUP_SIZE, t)
+        tg = tg if t % tg == 0 else t
+        return t // tg * MO._capacity(tg, mcfg)
+    calls = (rows(batch * prompt) <= KX.ROW_LIMIT) + steps * (rows(batch) <= KX.ROW_LIMIT)
+    return sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)) * calls
 
 
 def served_launches(label, serve, want):
@@ -1248,7 +1347,7 @@ def phase_trace(serve_batch, wall_s):
         f"{wall_s * 1e3:.3f} ms; busy share {busy_ms / (wall_s * 1e3):.4f}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
-    for port in ("flash_kernel", "flash_tc_kernel", "decode_split", "ssd_"):
+    for port in ("flash_kernel", "flash_tc_kernel", "decode_split", "ssd_", "moe_experts_kernel"):
         mine = [e for e in kernels if f"::{port}" in e.key]
         if mine:
             ms = sum(e.self_device_time_total for e in mine) / 1e3
@@ -1349,7 +1448,8 @@ def phase_serve_mamba():
         log(f"served batch B={BATCH} S={MAMBA_PROMPT}: tokens {out.tolist()}, stage latency "
             f"{lat[0] * 1e3:.3f} ms, PAS {engine.pas:.4f}")
     n_batches = len(prompts) - 1
-    want = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": cfg.n_layers * n_batches}
+    want = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": cfg.n_layers * n_batches,
+            "moe_experts": 0}
     peak = torch.cuda.max_memory_allocated()
     launches = served_launches("mamba2 launches", lambda: [engine.serve(p) for p in prompts[1:]],
                                want)
@@ -1503,7 +1603,9 @@ def phase_serve_nlp():
     """nlp-chain at full width: B 4, a 1280-token prompt to gemma3, 8 tokens
     handed on by each stage.  Per batch: K1 once per attention layer's
     prefill (gemma3 and qwen2-moe), K2 once per attention layer and decode
-    step, K3 once per mamba2 layer's prefill."""
+    step, K3 once per mamba2 layer's prefill, ``moe_experts`` once per
+    qwen2-moe layer wherever its rows an expert allow (``moe_experts_calls``:
+    the 32-token prefill and each decode step)."""
     t0 = time.perf_counter()
     servers = _nlp_chain_stages()
     torch.cuda.synchronize()
@@ -1526,7 +1628,8 @@ def phase_serve_nlp():
     n = len(prompts) - 1
     n_attn = servers[0].config.n_layers + servers[1].config.n_layers
     want = {"flash_attention": n_attn * n, "decode_attention": n_attn * GEN * n,
-            "ssd_scan": servers[2].config.n_layers * n}
+            "ssd_scan": servers[2].config.n_layers * n,
+            "moe_experts": moe_experts_calls(servers[1].config, BATCH, GEN, GEN) * n}
     peak = torch.cuda.max_memory_allocated()
     launches = served_launches("nlp-chain launches", lambda: [engine.serve(p) for p in prompts[1:]],
                                want)
@@ -1541,7 +1644,11 @@ def phase_moe_time(server):
     batch, by kernel name: routing, dispatch and combine (the einsums),
     the expert products, the shared experts.  torch.profiler ranges are
     put around ``moe_apply``, ``_expert_ffn`` and ``layers.mlp`` for this
-    run only, and each device kernel is charged to the innermost."""
+    run only, and each device kernel of an eager call is charged to the
+    innermost; ``moe_experts``' kernels (the expert products of the 32-token
+    prefill and of every decode step) are charged by name, as their
+    launches through ctypes and the decode steps' graph replays carry no
+    range.  Busy time: every device kernel of the batch."""
     from torch.profiler import record_function
     saved = MO.moe_apply, MO._expert_ffn, ML.mlp
 
@@ -1550,20 +1657,22 @@ def phase_moe_time(server):
             with record_function(name):
                 return fn(*a, **k)
         return run
-    MO.moe_apply, MO._expert_ffn, ML.mlp = (ranged("moe.moe_apply", saved[0]),
-                                            ranged("moe._expert_ffn", saved[1]),
-                                            ranged("layers.mlp", saved[2]))
+    MO.moe_apply, MO._expert_ffn, ML.mlp = (
+        ranged("moe.moe_apply", saved[0]), ranged("moe._expert_ffn", saved[1]),
+        ranged("layers.mlp", saved[2]))
     try:
         prompt = np.zeros((BATCH, GEN), np.int32)
         server.process(prompt)
-        prof, _ = _device_profile("qwen2-moe stage", lambda _: server.process(prompt))
+        prof, kernels = _device_profile("qwen2-moe stage", lambda _: server.process(prompt))
     finally:
         MO.moe_apply, MO._expert_ffn, ML.mlp = saved
     if prof is None:
         log(f"qwen2-moe stage: the profiler recorded no device kernel in {PROFILE_TRIES} "
             f"windows; MoE device time not measured")
         return
-    parts, busy = {}, 0.0
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    parts = {"expert products": {e.key: [e.count, e.self_device_time_total / 1e3]
+                                 for e in kernels if "::moe_experts_kernel" in e.key}}
     for e in prof.events():
         if not e.kernels:
             continue
@@ -1575,8 +1684,7 @@ def phase_moe_time(server):
                 "shared experts" if "moe.moe_apply" in names and "layers.mlp" in names else
                 "routing, dispatch and combine" if "moe.moe_apply" in names else None)
         for k in e.kernels:
-            busy += k.duration / 1e3
-            if part:
+            if part and "::moe_experts_kernel" not in k.name:
                 parts.setdefault(part, {}).setdefault(k.name, [0, 0.0])
                 parts[part][k.name][0] += 1
                 parts[part][k.name][1] += k.duration / 1e3
@@ -1676,8 +1784,10 @@ def phase_profile_nlp(qwen_server):
 def phase_jamba():
     """jamba-v0.1-52b at full width, one period of 8 layers: served as a
     one-stage pipeline (per batch K1 once, K2 once a decode step, K3 once
-    per Mamba2 layer), then its kernel path against its naive path (prefill
-    + 2 decode steps): bf16 on the served weights, f32 on fresh ones."""
+    per Mamba2 layer, ``moe_experts`` once per MoE layer and decode step),
+    then its kernel path against its naive path (prefill + 2 decode steps;
+    the naive path's experts the products over every expert): bf16 on the
+    served weights, f32 on fresh ones."""
     full = configs.get_config("jamba-v0.1-52b")
     cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
     kinds = ["attention" if cfg.is_attn_layer(i) else "mamba2" for i in range(cfg.n_layers)]
@@ -1695,7 +1805,8 @@ def phase_jamba():
         np.int32)
     server.process(prompt)
     out, lat = server.process(prompt)
-    want = {"flash_attention": n_attn, "decode_attention": n_attn * GEN, "ssd_scan": n_ssm}
+    want = {"flash_attention": n_attn, "decode_attention": n_attn * GEN, "ssd_scan": n_ssm,
+            "moe_experts": moe_experts_calls(cfg, BATCH, JAMBA_PROMPT, GEN)}
     launches = served_launches("jamba launches", lambda: server.process(prompt), want)
     log(f"served jamba batch B={BATCH} S={JAMBA_PROMPT}: tokens {out.tolist()}, latency "
         f"{lat * 1e3:.3f} ms; launches on the device {launches} (expected {want})")
@@ -1706,7 +1817,8 @@ def phase_jamba():
     naive, kern = _kernel_and_naive_logits(cfg, server.params[server.active], JAMBA_PROMPT,
                                            ("naive", "kernel"), replay=True)
     step = read_launches()
-    want_step = {"flash_attention": n_attn, "decode_attention": 2 * n_attn, "ssd_scan": n_ssm}
+    want_step = {"flash_attention": n_attn, "decode_attention": 2 * n_attn, "ssd_scan": n_ssm,
+                 "moe_experts": moe_experts_calls(cfg, BATCH, JAMBA_PROMPT, 2)}
     log(f"jamba kernel path, prefill + 2 decode steps: launches {step} (expected {want_step})")
     assert step == want_step, step
     _bf16_greedy_agreement(f"jamba-v0.1-52b full width, {cfg.n_layers} layers, "
@@ -1894,7 +2006,7 @@ def phase_whisper():
         walls.append(time.perf_counter() - t0)
     launches = read_launches()
     want = {"flash_attention": 2 * (cfg.n_encoder_layers + 2 * cfg.n_layers),
-            "decode_attention": 2 * 2 * cfg.n_layers * GEN, "ssd_scan": 0}
+            "decode_attention": 2 * 2 * cfg.n_layers * GEN, "ssd_scan": 0, "moe_experts": 0}
     log(f"served whisper batch B={BATCH} frames {cfg.encoder_seq} prompt {WHISPER_PROMPT}: tokens "
         f"{out.tolist()}; wall {[f'{w * 1e3:.3f} ms' for w in walls]}; launches over 2 batches "
         f"{launches} (expected {want}: per batch K1 {want['flash_attention'] // 2}, K2 "
@@ -2135,8 +2247,8 @@ def _train_guard():
     before launching."""
     gen = torch.Generator(device=DEV).manual_seed(0)
 
-    def t(*shape):
-        return _randn(gen, shape, torch.float32).requires_grad_(True)
+    def t(*shape, dtype=torch.float32):
+        return _randn(gen, shape, dtype).requires_grad_(True)
     calls = {"flash_attention": lambda: ops.flash_attention(t(1, 8, 2, 32), t(1, 8, 2, 32),
                                                             t(1, 8, 2, 32)),
              "decode_attention": lambda: ops.decode_attention(
@@ -2144,7 +2256,10 @@ def _train_guard():
                  torch.tensor([5], dtype=torch.int32, device=DEV)),
              "ssd_scan": lambda: ops.ssd_scan(t(1, 16, 2, 16), torch.rand(1, 16, 2, device=DEV),
                                               -torch.rand(2, device=DEV), t(1, 16, 1, 8),
-                                              t(1, 16, 1, 8), chunk=16)}
+                                              t(1, 16, 1, 8), chunk=16),
+             "moe_experts": lambda: ops.moe_experts(
+                 t(2, 1, 64, dtype=torch.bfloat16), torch.ones(2, dtype=torch.int32, device=DEV),
+                 *(t(2, 64, 64, dtype=torch.bfloat16) for _ in range(3)))}
     before = read_launches()
     for name, call in calls.items():
         try:
@@ -2443,8 +2558,7 @@ def phase_dryrun():
     for line in lines[-4:]:
         log(f"  quickstart: {line}")
     log(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
-    return {name: sum(p["launches"][name] for p in probes.values())
-            for name in ("flash_attention", "decode_attention", "ssd_scan")}
+    return {name: sum(p["launches"][name] for p in probes.values()) for name in PORT_KERNELS}
 
 
 def main() -> int:
@@ -2506,7 +2620,13 @@ def main() -> int:
                "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:60", "phi-3 decode"),
                "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
-                            "src/repro/kernels/ssd_scan.py:70", "mamba2-2.7b prefill")}
+                            "src/repro/kernels/ssd_scan.py:70", "mamba2-2.7b prefill"),
+               "moe_experts": ("src/repro_torch/kernels/csrc/moe_experts.cu",
+                               "no kernel: the reference's experts are XLA einsums "
+                               "(src/repro/models/moe.py::_expert_ffn)", "jamba decode R=2")}
+    moe_rows = {label: t for (name, label), t in times.items() if name == "moe_experts"}
+    parity["moe_experts"] = [{"case": label, "max_abs_err": t["max_abs_err"],
+                              "tol": TOL[torch.bfloat16]} for label, t in moe_rows.items()]
     kernels = []
     for name, (source, replaces, shape) in sources.items():
         t = times[(name, shape)]
@@ -2519,6 +2639,9 @@ def main() -> int:
                         "shape": shape, "f32_ms": t.get("f32_ms"),
                         "device_ms": t.get("device_ms"),
                         "hmma_in_library": hmma[name][0], "parity": parity[name]})
+    kernels[-1]["by_shape"] = {
+        label: {k: t[k] for k in ("ms", "device_ms", "bound_ms", "library_ms",
+                                  "library_device_ms")} for label, t in moe_rows.items()}
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

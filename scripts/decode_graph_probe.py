@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Two probes of the engine's CUDA graphs of the decode step, on a CUDA card.
+"""Three probes of the engine's decode step, on a CUDA card.
 
 ``steps <cell>``: builds a benchmark cell (``bench/harness.py``), warms it
 up (which captures its graphs), serves 12 batches of the cell's batch size
@@ -16,10 +16,18 @@ prompt 256, 8 steps), for batches 1, 2, 4 and 8, K2's device time a call
 in the order eager, graph, eager, graph; prints (calls, mean us, median
 us) per run.
 
+``experts <cell> <rows>``: builds a benchmark cell's first stage on its
+weights, prefills ``rows`` random prompts of the cell's length and runs
+16 eager ``decode_step`` calls under ``repro_torch.tracing.recording()``
+(a graph replay counts nothing), four times with new prompts; prints the
+MoE counters: ``moe.experts_read / moe.experts`` is the share of the
+experts' weights that decode reads.
+
 Run from a checkout's root:
 
     python3 scripts/decode_graph_probe.py steps jamba-2p.longdoc
     python3 scripts/decode_graph_probe.py k2
+    python3 scripts/decode_graph_probe.py experts jamba-2p.chat 6
 """
 import dataclasses
 import json
@@ -101,9 +109,38 @@ def k2():
         print(json.dumps({"b": b, "k2_calls_mean_median_us": res}), flush=True)
 
 
+def experts(cell_name, rows):
+    from bench import harness, spec, weights
+    from repro_torch import tracing
+    from repro_torch.models import model as M
+    dev = torch.device("cuda")
+    cell = harness.load_cell(cell_name)
+    st, (s, _) = cell.stages[0], cell.lengths()[0]
+    lay = spec.layout(st)
+    cfg, params = lay.port_config(st), lay.to_port(weights.make_weights(st, SEED, 0, dev), st)
+    rng = np.random.default_rng(11)
+    counters = []
+    with torch.inference_mode():
+        for _ in range(4):
+            toks = torch.from_numpy(rng.integers(0, st["vocab_size"], (rows, s))).to(dev)
+            hl, caches, _ = M.prefill(params, cfg, {"tokens": toks}, capacity=s + 16)
+            tok = torch.argmax(hl @ params["embed"].T, dim=-1)[:, None]
+            with tracing.recording() as rec:
+                for i in range(16):
+                    lg, caches = M.decode_step(params, cfg, caches, s + i, tok)
+                    tok = torch.argmax(lg, dim=-1)[:, None]
+            counters.append(rec.counters)
+    read = sum(c["moe.experts_read"] for c in counters)
+    given = sum(c["moe.experts"] for c in counters)
+    print(json.dumps({"cell": cell_name, "rows": rows, "steps": 64, "counters": counters,
+                      "experts_read_share": read / given}), flush=True)
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "steps":
         steps(sys.argv[2])
+    elif len(sys.argv) == 4 and sys.argv[1] == "experts":
+        experts(sys.argv[2], int(sys.argv[3]))
     elif sys.argv[1:] == ["k2"]:
         k2()
     else:

@@ -8,7 +8,8 @@ of the reference run unchanged: the reference wrapper ignores the positions
 too, and the CUDA kernels tile with the fixed 64-row tiles they were written
 for.  ``ssd_scan`` does not cap the chunk at S as the reference wrapper
 does: the kernel masks the ragged tail, so S need not be a multiple of the
-chunk.
+chunk.  ``moe_experts`` has no counterpart in the reference, whose experts
+are einsums: the port's MoE layer calls it at decode shapes.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Optional
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_experts as _moe
 from repro_torch.kernels import ssd_scan as _ssd
 
 
@@ -33,3 +35,10 @@ def decode_attention(q, k_cache, v_cache, lengths, *, block_k: int = 128):
 def ssd_scan(x, dt, a_neg, b_mat, c_mat, *, chunk: int = 256, init_state=None):
     return _ssd.ssd_scan(x, dt, a_neg, b_mat, c_mat, chunk=chunk,
                          init_state=init_state)
+
+
+def moe_experts(x, counts, w_in, w_gate, w_out):
+    """The products of the experts whose count is above 0, zeros for the
+    others: x (E, R, d), counts (E,) int32, w_in / w_gate (E, d, f), w_out
+    (E, f, d); w_gate None for tanh-GELU experts."""
+    return _moe.moe_experts(x, counts, w_in, w_gate, w_out)

@@ -31,19 +31,40 @@ on, ``n_held`` of them) and computes only their part of the result, the
 pairs routed to them; its shared expert is added in full.  Prefill sorts
 the held pairs by expert and runs each expert over its own tokens (the
 per-expert counts are read on the host); a decode step, which a CUDA graph
-captures and which may not wait on the host, runs every held expert over
-the step's few rows and weighs the pairs not routed to it by zero
-(``static``).  Besides ``moe.pairs`` (every routed pair, on the host) it
-counts ``moe.held``, the pairs routed to a held expert, on the device.
+captures and which may not wait on the host, gives every held expert the
+step's few rows, those not routed to it zeroed, and weighs its outputs by
+the pairs routed to it (``static``).  Besides ``moe.pairs`` (every routed
+pair, on the host) it counts ``moe.held``, the pairs routed to a held
+expert, on the device.
+
+With ``expert_impl="kernel"`` (``layer_apply``'s ``impl``), where an
+expert gets at most ``moe_experts.ROW_LIMIT`` rows (the einsum dispatch's
+capacity times its groups, or a static step's rows: decode shapes), the
+inputs are plain tensors that need no gradient, and the kernel takes their
+type on their device, the expert products go to
+``kernels.ops.moe_experts``, which reads the weights of the experts that
+hold a row only and gives the others exact zeros; the count of each
+expert's rows is made on the device from the routing (the kept slots of
+``dispatch``, or the routed rows), so a captured decode step follows each
+replay's routing.  An expert with no row contributes zero either way: the
+experts have no bias, so zero rows give zero outputs, and the combine
+weighs them by zero.  Elsewhere (prefill, a mesh, the gather dispatch,
+training, another ``expert_impl``: the naive path stays the reference)
+the batched products run over every expert.  Such a call counts
+``moe.experts`` (the experts it was given, on the host) and
+``moe.experts_read`` (those holding a row, on the device).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tracing
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed.api import constrain, einsum
+from repro_torch.kernels import moe_experts as KX
+from repro_torch.kernels import ops as KO
 from repro_torch.models import layers as L
 
 # routing-group tokens: capacity (and the dispatch tensor) is per group.  The
@@ -118,13 +139,48 @@ def _expert_ffn(params, xd):
     return torch.bmm(h, params["w_out"]).reshape(e, *lead, c, d).movedim(0, -3)
 
 
+def _reads_occupied(params, x, rows: int, expert_impl: str) -> bool:
+    """Whether the expert products of x (the layer's input or its dispatched
+    rows), ``rows`` an expert, take ``moe_experts``: the kernel path, decode
+    shapes, plain tensors that need no gradient, a type the kernel takes on
+    a card."""
+    w = params["w_in"]
+    return (expert_impl == "kernel" and rows <= KX.ROW_LIMIT
+            and not isinstance(x, DTensor) and not isinstance(w, DTensor)
+            and not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad))
+            and (x.device.type == "cpu" or (x.device.type == "cuda" and x.dtype in KX.DTYPES)))
+
+
+def _occupied_ffn(params, xe, counts):
+    """xe: (E, R, d) -> (E, R, d): the experts whose count (E,) int32 is
+    above 0 over their rows, zeros for the rest."""
+    tracing.count("moe.experts", xe.shape[0])
+    tracing.count_device("moe.experts_read", counts, at_least=1)
+    return KO.moe_experts(xe, counts, params["w_in"], params.get("w_gate"), params["w_out"])
+
+
+def _dispatched_ffn(params, xd, dispatch, expert_impl):
+    """``_expert_ffn`` of the dispatched rows xd (G, E, C, d); where
+    ``_reads_occupied``, only over the experts that hold a kept slot of
+    ``dispatch`` (G, T, E, C)."""
+    g, e, c, d = xd.shape
+    if not _reads_occupied(params, xd, g * c, expert_impl):
+        return _expert_ffn(params, xd)
+    counts = dispatch.sum(dim=(0, 1, 3), dtype=torch.int32)               # (E,)
+    ye = _occupied_ffn(params, xd.movedim(1, 0).reshape(e, g * c, d).contiguous(), counts)
+    return ye.reshape(e, g, c, d).movedim(0, 1)
+
+
 def moe_apply(params, x, mcfg: MoEConfig, impl: str = "einsum",
-              group_size: int = GROUP_SIZE, static: bool = False):
+              group_size: int = GROUP_SIZE, static: bool = False,
+              expert_impl: str = "kernel"):
     """x: (B, S, d). Returns (y (B, S, d), aux_loss 0-d f32, None for a
     sigmoid-routed layer).  ``impl`` and ``group_size`` apply to softmax
-    routing, ``static`` to sigmoid routing (see the module's docstring)."""
+    routing, ``static`` to sigmoid routing; ``expert_impl`` "kernel" lets
+    decode shapes take ``moe_experts``, any other the products over every
+    expert (see the module's docstring)."""
     if mcfg.router == "sigmoid":
-        return _moe_held(params, x, mcfg, static), None
+        return _moe_held(params, x, mcfg, static, expert_impl), None
     if mcfg.router != "softmax":
         raise ValueError(f"unknown router {mcfg.router!r}")
     if mcfg.ep_size != 1:
@@ -158,7 +214,8 @@ def moe_apply(params, x, mcfg: MoEConfig, impl: str = "einsum",
             dispatch = constrain(dispatch, "data", None, "model", None)
             xd = constrain(einsum("gtec,gtd->gecd", dispatch, xg), "data", "model", None, None)
         with tracing.span("moe.experts"):
-            ye = constrain(_expert_ffn(params, xd), "data", "model", None, None)
+            ye = constrain(_dispatched_ffn(params, xd, dispatch, expert_impl),
+                           "data", "model", None, None)
         with tracing.span("moe.combine"):
             y = constrain(einsum("gecd,gtec->gtd", ye, combine), "data", None, None).reshape(t, d)
             y = _add_shared(params, y, xf)
@@ -264,7 +321,7 @@ def _one_expert(params, j: int, xe):
     return h @ params["w_out"][j]
 
 
-def _moe_held(params, x, mcfg: MoEConfig, static: bool):
+def _moe_held(params, x, mcfg: MoEConfig, static: bool, expert_impl: str):
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     with tracing.span("moe.route"):
@@ -274,23 +331,33 @@ def _moe_held(params, x, mcfg: MoEConfig, static: bool):
         held = (loc >= 0) & (loc < mcfg.n_held)
         tracing.count("moe.pairs", top_i.numel())
         tracing.count_device("moe.held", held, at_least=1)
-    y = (_held_static if static else _held_sorted)(params, xf, top_w, loc, held)
+    y = (_held_static(params, xf, top_w, loc, held, expert_impl) if static
+         else _held_sorted(params, xf, top_w, loc, held))
     with tracing.span("moe.combine"):
         y = _add_shared(params, y.to(x.dtype), xf)
     return y.reshape(b, s, d)
 
 
-def _held_static(params, xf, top_w, loc, held):
+def _held_static(params, xf, top_w, loc, held, expert_impl):
     """Every held expert over every row, each row's output weighed by the
     pairs routed to it (zero for the rest): static shapes, no host wait.
-    Returns (T, d) f32."""
+    Where ``_reads_occupied``, an expert gets only its routed rows (the
+    others zeroed), and an expert with none is not read.  Returns (T, d)
+    f32."""
     t, d = xf.shape
     nh = params["w_in"].shape[0]
+    occupied = _reads_occupied(params, xf, t, expert_impl)
     with tracing.span("moe.dispatch"):
+        idx = loc.clamp(0, nh - 1)
         w = torch.zeros((t, nh), dtype=torch.float32, device=xf.device).scatter_add_(
-            1, loc.clamp(0, nh - 1), torch.where(held, top_w, 0.0))
+            1, idx, torch.where(held, top_w, 0.0))
+        if occupied:
+            routed = torch.zeros((t, nh), dtype=torch.int32, device=xf.device).scatter_add_(
+                1, idx, held.to(torch.int32)).T.contiguous()         # (nh, T): 0 or 1
+            xe = torch.where(routed[:, :, None] > 0, xf, 0.0)       # (nh, T, d)
     with tracing.span("moe.experts"):
-        ye = _expert_ffn(params, xf.expand(nh, t, d))               # (nh, T, d)
+        ye = (_occupied_ffn(params, xe, routed.sum(dim=1, dtype=torch.int32)) if occupied
+              else _expert_ffn(params, xf.expand(nh, t, d)))        # (nh, T, d)
     with tracing.span("moe.combine"):
         return torch.einsum("etd,te->td", ye.float(), w)
 

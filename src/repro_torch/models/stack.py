@@ -174,10 +174,11 @@ def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
     the chunked path of attention (decode takes the naive path for
     ``chunked``, as the reference's decode does), and the kernel or the
     naive path of the SSD scan (``chunked`` runs the naive scan, which is
-    what the reference's ``mamba_forward`` runs); ``moe_impl`` the MoE
-    dispatch; ``enc_out`` (B, F, d) is the encoder output that a
-    cross-attention layer reads outside decode; ``at`` the decode step's
-    position (``DecodeAt``); aux is the MoE balancing
+    what the reference's ``mamba_forward`` runs), and whether decode
+    shapes' MoE expert products take ``moe_experts`` (``kernel`` only);
+    ``moe_impl`` the MoE dispatch; ``enc_out`` (B, F, d) is the encoder
+    output that a cross-attention layer reads outside decode; ``at`` the
+    decode step's position (``DecodeAt``); aux is the MoE balancing
     loss (0-d f32), None for a layer without MoE (the reference's zero,
     left out to spare a launch)."""
     aux = None
@@ -219,7 +220,7 @@ def layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x, positions, *,
         with tracing.span("moe"):
             h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
             mo, aux = MO.moe_apply(params["moe"], h, cfg.moe, impl=moe_impl,
-                                   static=mode == "decode")
+                                   static=mode == "decode", expert_impl=impl)
             x = x + mo
     elif "mlp" in params:
         with tracing.span("mlp"):

@@ -4,7 +4,8 @@ model and engine paths through the kernels against the naive path (reduced
 whisper's encoder-decoder included), the MoE layer's two dispatch modes
 against each other at full width, and the engine's CUDA graphs of the
 decode step against the eager step (Kimi-K2's latent attention and held
-experts among them).
+experts among them), and MoE decode's expert kernel against its plain
+version, at full width and inside those graphs.
 
 Every test is marked ``gpu`` and skips inside the test where there is no
 CUDA device.  The file imports neither jax nor the reference package, so it
@@ -28,6 +29,7 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels import decode_attention as K2
 from repro_torch.kernels import flash_attention as K1
+from repro_torch.kernels import moe_experts as KX
 from repro_torch.kernels import ssd_scan as K3
 from repro_torch.models import model as M
 from repro_torch.models import moe as MO
@@ -762,16 +764,17 @@ def test_moe_layer_equals_the_broadcast_expert_products(arch, tokens, monkeypatc
     routing group (GROUP_SIZE tokens, every batch the engines serve) the
     products have the same shapes and the outputs are equal bit for bit;
     over two groups the products have twice the rows and the outputs agree
-    within the bf16 tolerance."""
+    within the bf16 tolerance.  Both over every expert, at 4 tokens too
+    (decode shapes' ``moe_experts`` is held to them below)."""
     _need_cuda()
     cfg = configs.get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = MO.init_moe(gen, cfg.d_model, cfg.moe, cfg.mlp_gated, torch.bfloat16)
     x = _randn(17, (4, tokens // 4, cfg.d_model), torch.bfloat16)
     with torch.inference_mode():
-        y, aux = MO.moe_apply(params, x, cfg.moe)
+        y, aux = MO.moe_apply(params, x, cfg.moe, expert_impl="naive")
         monkeypatch.setattr(MO, "_expert_ffn", _broadcast_expert_ffn)
-        y0, aux0 = MO.moe_apply(params, x, cfg.moe)
+        y0, aux0 = MO.moe_apply(params, x, cfg.moe, expert_impl="naive")
     diff = float((y.float() - y0.float()).abs().max())
     print(f"{arch} T={tokens}: {tokens // min(tokens, MO.GROUP_SIZE)} routing groups, "
           f"max abs diff {diff:.4e}")
@@ -782,6 +785,158 @@ def test_moe_layer_equals_the_broadcast_expert_products(arch, tokens, monkeypatc
         _close(y, y0, torch.bfloat16)
     del params
     torch.cuda.empty_cache()
+
+
+# (E, d, f, R, occupied experts, gated): jamba's experts at decode (capacity
+# 1 and 2; about 9 of 16 hold a row at 6 rows, top-2; none), Kimi's 24 held
+# experts at its 4 rows (2, and all 24), tanh-GELU experts at 16 rows, and
+# ragged widths (d 200: a depth stage past the last row; f 136: a column
+# tile past the last column)
+MOE_EXPERTS = [(16, 4096, 14336, 1, (0, 3, 5, 6, 9, 12, 15), True),
+               (16, 4096, 14336, 2, (1, 2, 4, 5, 7, 8, 10, 13, 14), True),
+               (16, 4096, 14336, 2, (), True),
+               (24, 7168, 2048, 4, (3, 17), True),
+               (24, 7168, 2048, 4, tuple(range(24)), True),
+               (8, 256, 512, 16, (1, 2, 7), False),
+               (3, 200, 136, 5, (0, 2), True)]
+
+
+def _moe_experts_inputs(seed, e, d, f, r, occupied, gated):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = {"w_in": MO._init_experts(gen, e, d, f, torch.bfloat16),
+         "w_gate": MO._init_experts(gen, e, d, f, torch.bfloat16) if gated else None,
+         "w_out": MO._init_experts(gen, e, f, d, torch.bfloat16)}
+    x = _randn(seed, (e, r, d), torch.bfloat16)
+    counts = torch.zeros(e, dtype=torch.int32, device="cuda")
+    counts[list(occupied)] = 1 + torch.arange(len(occupied), dtype=torch.int32,
+                                              device="cuda") % r
+    return x, counts, p
+
+
+@pytest.mark.parametrize("e,d,f,r,occupied,gated", MOE_EXPERTS)
+def test_moe_experts_kernel_matches_plain(e, d, f, r, occupied, gated):
+    """The kernel against its plain version within the bf16 tolerance on the
+    occupied experts, exact zeros on the others, the same bits on a second
+    call (the split sums are added in split order), its arrival counters
+    zero after."""
+    _need_cuda()
+    x, counts, p = _moe_experts_inputs(31, e, d, f, r, occupied, gated)
+    assert int((counts > 0).sum()) == len(occupied)
+    with torch.inference_mode():
+        got = KX.moe_experts(x, counts, p["w_in"], p["w_gate"], p["w_out"])
+        again = KX.moe_experts(x, counts, p["w_in"], p["w_gate"], p["w_out"])
+        want = KX.moe_experts_plain(x, counts, p["w_in"], p["w_gate"], p["w_out"])
+    torch.cuda.synchronize()
+    busy = counts > 0
+    _close(got[busy], want[busy], torch.bfloat16)
+    assert torch.equal(got[~busy], torch.zeros_like(got[~busy]))
+    assert torch.equal(got, again)
+    assert all(int(c.abs().sum()) == 0 for c in KX._counters.values())
+
+
+def test_moe_experts_repeated_and_alternating_calls_match_plain():
+    """Kimi's and jamba's shapes in turn with new occupancies each call: each
+    output against the plain version, every arrival counter zero at the
+    end."""
+    _need_cuda()
+    rng = np.random.default_rng(5)
+    shapes = [(24, 7168, 2048, 4), (16, 4096, 14336, 2)]
+    inputs = {s: _moe_experts_inputs(40 + i, *s, (), True) for i, s in enumerate(shapes)}
+    with torch.inference_mode():
+        for call in range(6):
+            e, d, f, r = shapes[call % 2]
+            x, counts, p = inputs[shapes[call % 2]]
+            counts.copy_(torch.from_numpy((rng.random(e) < 0.3).astype(np.int32)).cuda())
+            got = KX.moe_experts(x, counts, p["w_in"], p["w_gate"], p["w_out"])
+            want = KX.moe_experts_plain(x, counts, p["w_in"], p["w_gate"], p["w_out"])
+            _close(got, want, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0 for c in KX._counters.values())
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "kimi-k2-instruct"])
+def test_decode_moe_layer_at_full_width_equals_the_all_experts_path(arch):
+    """One MoE layer at its published widths in bf16 at the cell's decode
+    batch (jamba: 8 rows, capacity 2 of 16 experts; Kimi: 4 rows, 24 held
+    experts of 384, their shared expert): ``moe_experts`` over the experts
+    that hold a row against the products over every expert, within the
+    bf16 tolerance, and the experts read fewer than those given."""
+    _need_cuda()
+    from repro_torch import tracing
+    cfg = configs.get_config(arch)
+    mcfg, b = cfg.moe, 8
+    if mcfg.router == "sigmoid":
+        mcfg, b = dataclasses.replace(mcfg, ep_size=16), 4
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = MO.init_moe(gen, cfg.d_model, mcfg, cfg.mlp_gated, torch.bfloat16)
+    x = _randn(19, (b, 1, cfg.d_model), torch.bfloat16)
+    static = mcfg.router == "sigmoid"
+    with torch.inference_mode():
+        with tracing.recording() as rec:
+            y = MO.moe_apply(params, x, mcfg, static=static)[0]
+        y0 = MO.moe_apply(params, x, mcfg, static=static, expert_impl="naive")[0]
+    print(f"{arch}: {rec.counters['moe.experts_read']} of {rec.counters['moe.experts']} "
+          f"experts read, max abs diff {float((y.float() - y0.float()).abs().max()):.4e}")
+    assert rec.counters["moe.experts"] == mcfg.n_held
+    assert 0 < rec.counters["moe.experts_read"] < mcfg.n_held
+    _close(y, y0, torch.bfloat16)
+    del params
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "kimi-k2-instruct"])
+def test_a_decode_graph_follows_the_expert_occupancy_of_each_replay(arch):
+    """Reduced, bf16: a decode step captured while every MoE layer routes
+    its rows to the same few experts (jamba: a zero router, whose ties go
+    to experts 0 and 1; Kimi: a selection bias that keeps every pick off
+    the held experts, so none holds a row), then the routers put back:
+    more experts hold rows than at the capture, and each replay's logits
+    equal the eager step's bit for bit, so the replays read the occupancy
+    of their own step."""
+    _need_cuda()
+    from repro_torch import tracing
+    from repro_torch.serving.decode_graph import DecodeGraph
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True), dtype=torch.bfloat16)
+    params = M.init(cfg, seed=0)
+    moes = [lay["moe"] for lay in params["stack"] if "moe" in lay]
+    kept = [{k: m[k].clone() for k in ("router", "bias") if k in m} for m in moes]
+    b, s, steps = 4, 16, 3
+    toks = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.vocab, (b, s))).cuda()
+
+    def experts_read(caches, tok):
+        with tracing.recording() as rec:
+            M.decode_step(params, cfg, [{k: t.clone() for k, t in c.items()} for c in caches],
+                          s, tok)
+        return rec.counters["moe.experts_read"]
+
+    with torch.inference_mode():
+        hl, caches, _ = M.prefill(params, cfg, {"tokens": toks}, capacity=s + steps)
+        tok = torch.argmax(hl @ params["embed"].T, dim=-1)[:, None]
+        for m in moes:
+            if "bias" in m:
+                m["bias"][:cfg.moe.n_held] = -100.0
+            else:
+                m["router"].zero_()
+        graph = DecodeGraph(params, cfg, caches, torch.cuda.Stream(),
+                            torch.cuda.graph_pool_handle())
+        at_capture = experts_read(caches, tok)
+        for m, k in zip(moes, kept):
+            for name, t in k.items():
+                m[name].copy_(t)
+        after = experts_read(caches, tok)
+        graph.load(tok, caches, s)
+        got, want = [], []
+        for _ in range(steps):
+            graph.replay()
+            got.append(graph.logits.clone())
+        for i in range(steps):
+            lg, caches = M.decode_step(params, cfg, caches, s + i, tok)
+            want.append(lg)
+            tok = torch.argmax(lg, dim=-1)[:, None]
+    print(f"{arch}: experts read at the capture {at_capture}, after {after}")
+    assert at_capture == (0 if cfg.moe.router == "sigmoid" else 2 * len(moes))
+    assert after > at_capture
+    assert torch.equal(torch.stack(got), torch.stack(want))
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,10 @@ from repro.configs.base import MoEConfig as JMoE
 from repro.models import model as JM
 from repro.models import moe as JMO
 from repro_torch import configs as TC
+from repro_torch import tracing
 from repro_torch.configs.base import MoEConfig as TMoE
+from repro_torch.kernels import moe_experts as KX
+from repro_torch.kernels import ops as KO
 from repro_torch.models import convert
 from repro_torch.models import moe as TMO
 
@@ -273,3 +276,177 @@ def test_convert_unstacks_moe_leaves_and_keeps_the_router_f32(converted):
             np.testing.assert_array_equal(got["shared"]["w_gate"].float().numpy(),
                                           want["shared"]["w_gate"][i // period]
                                           .astype(np.float32))
+
+
+# -- decode shapes: only the experts that hold a row (kernels/moe_experts) ----
+def _expert_params(e, d, f, gated, seed):
+    gen = torch.Generator().manual_seed(seed)
+    p = {"w_in": TMO._init_experts(gen, e, d, f, torch.float32),
+         "w_out": TMO._init_experts(gen, e, f, d, torch.float32)}
+    if gated:
+        p["w_gate"] = TMO._init_experts(gen, e, d, f, torch.float32)
+    return p
+
+
+OCCUPIED = {"none": [], "one": [2], "all": [0, 1, 2, 3, 4]}
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("occupied", list(OCCUPIED))
+def test_plain_experts_equal_the_batched_products_on_occupied_experts(occupied, gated):
+    """The kernel's plain version (and the public wrapper on a CPU tensor)
+    against ``_expert_ffn`` over five experts of three rows: the same on
+    each expert whose count is above 0, whatever the count, and exact zeros
+    on the others; SwiGLU and tanh-GELU experts."""
+    e, r, d, f = 5, 3, 32, 48
+    p = _expert_params(e, d, f, gated, seed=11)
+    x = torch.randn(e, r, d, generator=torch.Generator().manual_seed(12))
+    counts = torch.zeros(e, dtype=torch.int32)
+    counts[OCCUPIED[occupied]] = torch.arange(1, len(OCCUPIED[occupied]) + 1, dtype=torch.int32)
+    got = KX.moe_experts_plain(x, counts, p["w_in"], p.get("w_gate"), p["w_out"])
+    assert torch.equal(KO.moe_experts(x, counts, p["w_in"], p.get("w_gate"), p["w_out"]), got)
+    busy = counts > 0
+    torch.testing.assert_close(got[busy], TMO._expert_ffn(p, x)[busy], **F32)
+    assert torch.equal(got[~busy], torch.zeros_like(got[~busy]))
+
+
+def test_moe_experts_refuses_what_the_kernel_cannot_take():
+    p = _expert_params(4, 32, 48, True, seed=13)
+    args = (p["w_in"], p["w_gate"], p["w_out"])
+    x, counts = torch.zeros(4, 2, 32), torch.ones(4, dtype=torch.int32)
+    for bad, what in ((torch.zeros(4, KX.ROW_LIMIT + 1, 32), "rows an expert"),
+                      (x, "int32")):
+        with pytest.raises(ValueError, match=what):
+            KO.moe_experts(bad, counts if what != "int32" else counts.long(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        KO.moe_experts(torch.zeros(4, 32, 2).transpose(1, 2), counts, *args)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096), (7168, 2048), (2048, 7168),
+                                 (2048, 1408), (1408, 2048), (32, 48), (200, 8)])
+def test_split_plan_covers_the_depth_in_whole_stages(k, n):
+    """jamba's, Kimi's and qwen2-moe's up and down products and two small
+    ones: splits of a whole number of 64-row stages, none empty, together
+    covering the depth; a grid of at most TARGET_BLOCKS blocks (one wave)
+    and at least half as many where the widths allow."""
+    splits, kc = KX.split_plan(k, n)
+    assert kc % KX.BK == 0 and (splits - 1) * kc < k <= splits * kc
+    tiles = -(-n // KX.BN)
+    assert min(KX.TARGET_BLOCKS // 2, tiles * -(-k // KX.BK)) <= splits * tiles <= max(
+        KX.TARGET_BLOCKS, tiles)
+
+
+# name: (moe config, gated, B, a router that sends every token to experts 0 and 1)
+DECODE_CASES = {
+    "jamba_b8": (dict(n_experts=16, top_k=2, d_ff_expert=64, capacity_factor=1.25), True, 8,
+                 False),
+    "jamba_b1": (dict(n_experts=16, top_k=2, d_ff_expert=64, capacity_factor=1.25), True, 1,
+                 False),
+    "overflow": (dict(n_experts=4, top_k=2, d_ff_expert=64, capacity_factor=1.25), True, 8,
+                 True),
+    "shared_gelu": (dict(QWEN, n_experts=16), False, 4, False),
+}
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_moe_equals_the_all_experts_path(case):
+    """A decode step's MoE layer (S 1, einsum dispatch, capacity 1 or 2 an
+    expert, or 6 under 16 pairs where the router sends every token to
+    experts 0 and 1, so R5 drops four) through ``moe_experts`` against the
+    products over every expert: the same output, the same drops; the
+    counters read the experts given and those holding a kept pair."""
+    kw, gated, b, forced = DECODE_CASES[case]
+    _, tm = _mcfgs(**kw)
+    _, tp = _params(JMoE(**kw), gated, seed=14)
+    gen = torch.Generator().manual_seed(15)
+    x = torch.rand((b, 1, D), generator=gen) + 0.1 if forced else torch.randn((b, 1, D),
+                                                                            generator=gen)
+    if forced:
+        tp = dict(tp, router=torch.tensor([[1.0, 0.5, -1.0, -1.0]]).repeat(D, 1))
+    cap = TMO._capacity(b, tm)
+    assert cap <= KX.ROW_LIMIT
+    _, top_i, _ = TMO._route(tp, x.reshape(1, b, D), tm)
+    pos = TMO._positions_in_expert_grouped(top_i, tm, cap)
+    kept = set(top_i[pos < cap].tolist())
+    with tracing.recording() as rec:
+        y, aux = TMO.moe_apply(tp, x, tm)
+    assert rec.counters["moe.experts"] == tm.n_experts
+    assert rec.counters["moe.experts_read"] == len(kept) < tm.n_experts
+    assert rec.counters["moe.dropped"] == int((pos >= cap).sum()) == (4 if forced else
+                                                                      rec.counters["moe.dropped"])
+    with tracing.recording() as rec0:
+        y0, aux0 = TMO.moe_apply(tp, x, tm, expert_impl="naive")
+    assert "moe.experts" not in rec0.counters
+    assert rec0.counters["moe.dropped"] == rec.counters["moe.dropped"]
+    torch.testing.assert_close(y, y0, **F32)
+    assert torch.equal(aux, aux0)
+
+
+def test_static_held_decode_equals_the_all_experts_path():
+    """Sigmoid routing over 4 held experts of 16 (top 4, a shared expert),
+    a decode step of 4 rows: each held expert gets its routed rows only and
+    an expert with none is not read; the output equals every held expert
+    over every row weighed by zero where not routed, and the sorted
+    prefill dispatch; the counters read the 4 experts given and those
+    routed to."""
+    mcfg = TMoE(n_experts=16, top_k=4, d_ff_expert=24, n_shared_experts=1, d_ff_shared=24,
+                router="sigmoid", routed_scale=2.5, ep_size=4)
+    gen = torch.Generator().manual_seed(16)
+    p = TMO.init_moe(gen, D, mcfg, True, torch.float32)
+    p["bias"] = torch.randn(16, generator=gen) * 0.1
+    x = torch.randn(4, 1, D, generator=gen)
+    _, top_i = TMO._route_sigmoid(p, x.reshape(4, D), mcfg)
+    routed = set(top_i[top_i < 4].tolist())
+    assert 0 < len(routed) < 4
+    with tracing.recording() as rec:
+        y, _ = TMO.moe_apply(p, x, mcfg, static=True)
+    assert (rec.counters["moe.experts"], rec.counters["moe.experts_read"]) == (4, len(routed))
+    torch.testing.assert_close(y, TMO.moe_apply(p, x, mcfg, static=False)[0], **F32)
+    with tracing.recording() as rec0:
+        y0, _ = TMO.moe_apply(p, x, mcfg, static=True, expert_impl="naive")
+    assert "moe.experts" not in rec0.counters
+    torch.testing.assert_close(y, y0, **F32)
+
+
+def test_training_and_prefill_shapes_keep_the_batched_products():
+    """Rows past the limit, or inputs that need a gradient, take the
+    products over every expert: ``moe.experts`` is not counted."""
+    kw = dict(n_experts=4, top_k=2, d_ff_expert=64, capacity_factor=1.25)
+    _, tm = _mcfgs(**kw)
+    _, tp = _params(JMoE(**kw), True, seed=17)
+    gen = torch.Generator().manual_seed(18)
+    assert TMO._capacity(64, tm) > KX.ROW_LIMIT
+    for x in (torch.randn(4, 16, D, generator=gen),
+              torch.randn(2, 1, D, generator=gen).requires_grad_()):
+        with tracing.recording() as rec:
+            y, _ = TMO.moe_apply(tp, x, tm)
+        assert "moe.experts" not in rec.counters
+    y.sum().backward()
+    assert x.grad is not None
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "kimi-k2-instruct"])
+def test_the_stack_impl_picks_the_expert_products_of_a_decode_step(arch):
+    """The stack's ``impl`` reaches the MoE layers of a reduced decode step:
+    ``kernel`` gives their experts to ``moe_experts``, ``naive`` runs the
+    products over every expert (the reference the kernel path is held to),
+    and both give the same logits."""
+    from repro_torch.models import model as TM
+    cfg = TC.get_config(arch, reduced=True)
+    params = TM.init(cfg, seed=0, device="cpu")
+    s = 6
+    toks = torch.from_numpy(np.random.default_rng(19).integers(0, cfg.vocab, (2, s + 1)))
+    with torch.inference_mode():
+        _, caches, _ = TM.prefill(params, cfg, {"tokens": toks[:, :s]}, capacity=s + 1,
+                                  impl="naive")
+        out = {}
+        for impl in ("kernel", "naive"):
+            step_caches = [{k: t.clone() for k, t in c.items()} for c in caches]
+            with tracing.recording() as rec:
+                lg, _ = TM.decode_step(params, cfg, step_caches, s, toks[:, s:], impl=impl)
+            out[impl] = lg, rec.counters
+    n_moe = sum("moe" in lay for lay in params["stack"])
+    assert n_moe > 0
+    assert out["kernel"][1]["moe.experts"] == n_moe * cfg.moe.n_held
+    assert "moe.experts" not in out["naive"][1]
+    torch.testing.assert_close(out["kernel"][0], out["naive"][0], **F32)
